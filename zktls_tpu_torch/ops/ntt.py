@@ -1,0 +1,141 @@
+"""Number-theoretic transform (radix-2) and low-degree extension over
+Baby-Bear as torch ops, batched over the columns of an (n, C) matrix.
+
+Counterpart of zktls_tpu.ops.ntt: one bit-reversal gather, then log2(n)
+decimation-in-time stages written as reshapes and slices; Montgomery
+values in and out; twiddle tables built on the host (numpy, exact) and
+cached per size and device.  The four-step split of the reference (for
+n ≥ 2^23) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from . import babybear as bb
+from .field_ref import P, two_adic_root
+
+__all__ = ["ntt", "intt", "coset_lde", "coeffs_to_coset_evals",
+           "coset_coeffs", "bitrev_indices", "eval_domain", "powers"]
+
+
+def powers(base: int, n: int) -> np.ndarray:
+    """[1, base, base², …, base^{n−1}] mod p as uint64 numpy (by doubling:
+    log n vector multiplies)."""
+    out = np.empty(max(n, 1), dtype=np.uint64)
+    out[0] = 1
+    k = 1
+    bk = base % P                                   # base^k
+    while k < n:
+        m = min(k, n - k)
+        out[k : k + m] = out[:m] * np.uint64(bk) % np.uint64(P)
+        bk = bk * bk % P
+        k *= 2
+    return out[:n]
+
+
+@lru_cache(maxsize=None)
+def bitrev_indices(log_n: int) -> np.ndarray:
+    n = 1 << log_n
+    idx = np.arange(n, dtype=np.uint32)
+    rev = np.zeros(n, dtype=np.uint32)
+    for b in range(log_n):
+        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    return rev
+
+
+@lru_cache(maxsize=None)
+def _twiddles(log_n: int, inverse: bool) -> tuple[np.ndarray, ...]:
+    """Per-stage twiddle tables, Montgomery form.  Stage s (half-block
+    m = 2^s) uses w_{2m}^j for j in [0, m)."""
+    root = two_adic_root(log_n)
+    if inverse:
+        root = pow(root, P - 2, P)
+    return tuple(
+        bb.np_to_mont(powers(pow(root, 1 << (log_n - 1 - s), P), 1 << s))
+        for s in range(log_n))
+
+
+@lru_cache(maxsize=None)
+def _ntt_args(log_n: int, inverse: bool, device: torch.device):
+    rev = torch.from_numpy(bitrev_indices(log_n).astype(np.int64)).to(device)
+    tws = tuple(bb.from_numpy(t, device) for t in _twiddles(log_n, inverse))
+    return rev, tws
+
+
+def ntt(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """In-order -> in-order NTT along dim 0; x is (n,) or (n, C) in
+    Montgomery form.  inverse=True includes the 1/n scaling."""
+    n = x.shape[0]
+    log_n = n.bit_length() - 1
+    if 1 << log_n != n:
+        raise ValueError(f"NTT size must be a power of two, got {n}")
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+    cols = x.shape[1]
+    rev, tws = _ntt_args(log_n, inverse, x.device)
+    x = x[rev]
+    for s in range(log_n):
+        m = 1 << s
+        v = x.view(n // (2 * m), 2, m, cols)
+        a = v[:, 0]
+        b = bb.mul(v[:, 1], tws[s].view(1, m, 1))
+        x = torch.stack([bb.add(a, b), bb.sub(a, b)], dim=1).view(n, cols)
+    if inverse:
+        x = bb.mul(x, int(bb.np_to_mont(np.array([pow(n, P - 2, P)],
+                                                 dtype=np.uint32))[0]))
+    return x[:, 0] if squeeze else x
+
+
+def intt(x: torch.Tensor) -> torch.Tensor:
+    return ntt(x, inverse=True)
+
+
+@lru_cache(maxsize=None)
+def _coset_powers(log_n: int, shift: int) -> np.ndarray:
+    return bb.np_to_mont(powers(shift, 1 << log_n))
+
+
+def _scale_rows(x: torch.Tensor, log_n: int, shift: int) -> torch.Tensor:
+    scale = bb.from_numpy(_coset_powers(log_n, shift), x.device)
+    if x.ndim == 2:
+        scale = scale[:, None]
+    return bb.mul(x, scale)
+
+
+def coeffs_to_coset_evals(coeffs: torch.Tensor, log_blowup: int,
+                          shift: int) -> torch.Tensor:
+    """Coefficients (n, C) of a degree-<n polynomial -> evaluations on the
+    coset shift·H of the size n·2^log_blowup subgroup.  Montgomery in/out."""
+    n = coeffs.shape[0]
+    coeffs = _scale_rows(coeffs, n.bit_length() - 1, shift)
+    pad = torch.zeros(((1 << log_blowup) * n - n,) + coeffs.shape[1:],
+                      dtype=coeffs.dtype, device=coeffs.device)
+    return ntt(torch.cat([coeffs, pad], dim=0))
+
+
+def coset_lde(values: torch.Tensor, log_blowup: int, shift: int
+              ) -> torch.Tensor:
+    """Low-degree extension: `values` (n, C) are evaluations on the size-n
+    subgroup; return evaluations on the coset shift·H of the size
+    n·2^log_blowup subgroup.  Montgomery in/out."""
+    return coeffs_to_coset_evals(intt(values), log_blowup, shift)
+
+
+def coset_coeffs(values: torch.Tensor, shift: int) -> torch.Tensor:
+    """Interpolate values (N, C) on the coset shift·H_N back to
+    coefficients (undoes the coset scaling).  Montgomery in/out."""
+    n = values.shape[0]
+    return _scale_rows(intt(values), n.bit_length() - 1,
+                       pow(shift, P - 2, P))
+
+
+@lru_cache(maxsize=None)
+def eval_domain(log_n: int, shift: int = 1) -> np.ndarray:
+    """The points shift·w^i of the evaluation domain, plain form (host)."""
+    return (powers(two_adic_root(log_n), 1 << log_n)
+            * np.uint64(shift % P) % np.uint64(P)).astype(np.uint32)

@@ -1,0 +1,136 @@
+"""Where the time of one prove goes, on the card.
+
+    python3 -m zktls_tpu_torch.profile_prove
+
+Proves the 32768 × 639 Sha256Air machine (the chip_smoke.py main path,
+DEFAULT_CONFIG) three times: cold (first use: kernel build, constraint
+lowering, host tables), warm with per-stage seconds, and warm under
+torch.profiler.  Prints one JSON line: the card, the cold and warm wall
+seconds, the warm stages, the profiled prove's wall and summed device
+seconds (their ratio is the device-busy share: the port runs on one
+stream, so device activities do not overlap), the Poseidon2 kernel's
+device time beside the least time the card could take for the same
+permutations, device time by kind of activity, and the top activities.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+from .ops import cuda_poseidon2
+from .ops.merkle import LEAF_RATE
+from .stark.config import DEFAULT_CONFIG
+from .stark.machine import STAGES, prove_machine
+from .workload import sha_machine
+
+SEED = 20261016
+
+
+def _poseidon2_work(n_rows: int, width: int, perm_width: int, config
+                    ) -> dict[int, int]:
+    """States per Poseidon2 width that one prove of a one-chip machine
+    hashes: each committed matrix (trace, perm, quotient, every FRI layer's
+    pair rows) costs ceil(w/16) width-24 leaf absorbs per row and
+    rows − 1 width-16 compressions."""
+    big = n_rows << config.log_blowup
+    mats = [(big, width), (big, perm_width), (big, 4 * config.blowup)]
+    size = big
+    while size > config.fri_final_size:
+        mats.append((size // 2, 8))
+        size //= 2
+    return {24: sum(r * -(-w // LEAF_RATE) for r, w in mats),
+            16: sum(r - 1 for r, _ in mats)}
+
+
+#: device activity kinds, by a substring of the kernel name (first match)
+KINDS = (("k1", "poseidon2_kernel"), ("copy", "Memcpy"), ("copy", "Memset"),
+         ("int8_gemm", "gemm"), ("gather_scatter", "index"),
+         ("cat", "CatArray"), ("reduce", "reduce_kernel"))
+
+
+def _by_kind(rows) -> dict:
+    """Device ms and activity count per kind; what matches no kind is a
+    torch elementwise kernel (the int64 field arithmetic)."""
+    out: dict = {}
+    for name, count, us in rows:
+        kind = next((k for k, sub in KINDS if sub in name), "elementwise")
+        agg = out.setdefault(kind, {"ms": 0.0, "count": 0})
+        agg["ms"] += us / 1e3
+        agg["count"] += count
+    return out
+
+
+def _device_rows(prof) -> list[tuple[str, int, float]]:
+    """(name, count, device µs) of every device activity, largest first."""
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((e.key, e.count, float(us)))
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_prove: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card, clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().rsplit(",", 1)
+    clock_mhz = float(clock.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    inst, _ = sha_machine(8, 3000, SEED)
+    binding = b"chip-smoke sha256 machine"
+
+    def prove(timings=None):
+        t0 = time.perf_counter()
+        prove_machine([inst], binding, DEFAULT_CONFIG, device=dev,
+                      timings=timings)
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    cold_s = prove()
+    stages: dict = {}
+    warm_s = prove(stages)
+    launches_before = cuda_poseidon2.launches
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        profiled_s = prove()
+    rows = _device_rows(prof)
+    device_us = sum(r[2] for r in rows)
+    k1_us = sum(r[2] for r in rows if "poseidon2_kernel" in r[0])
+    states = _poseidon2_work(inst.trace.shape[0], inst.air.width,
+                             inst.air.perm_width, DEFAULT_CONFIG)
+    print(json.dumps({
+        "card": card,
+        "trace": list(inst.trace.shape),
+        "cold_prove_s": cold_s,
+        "warm_prove_s": warm_s,
+        "warm_stages_s": {k: stages[k] for k in STAGES},
+        "profiled_prove_s": profiled_s,
+        "device_s": device_us / 1e6,
+        "device_busy_share": device_us / 1e6 / profiled_s,
+        "device_by_kind": _by_kind(rows),
+        "k1_launches": cuda_poseidon2.launches - launches_before,
+        "k1_device_s": k1_us / 1e6,
+        "k1_states": states,
+        "k1_bound": cuda_poseidon2.bound(states, sms, clock_mhz),
+        "top_device": [{"name": n[:90], "count": c, "ms": us / 1e3}
+                       for n, c, us in rows[:25]],
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,839 @@
+"""The machine STARK: every chip of a workload proven in ONE proof.
+
+Port of zktls_tpu.stark.machine for one device.  The proof format, the
+transcript and every Fiat-Shamir observation are the reference's, so the
+port's `MachineProof.to_bytes()` equals the reference's byte for byte on
+the same input, and each package's verifier accepts the other's proofs.
+
+Transcript order (prover/verifier mirror exactly):
+  header(binding, chip names/sizes/publics) → trace roots → γ, δ →
+  perm roots + bus sums → α → quotient roots → ζ → OOD evals → β →
+  FRI roots/folds → final layer → grinding → query indices.
+
+Not ported yet (each raises or is absent): preprocessed columns, several
+devices, host spill of large matrices, chunked DEEP.  FRI is the
+reference's host-driven fold loop, which gives the same bytes as its fused
+device program.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..core import cbor
+from ..ops import babybear as bb
+from ..ops import ext as ex
+from ..ops.field_ref import Fp4, P, two_adic_root
+from ..ops.merkle import MerkleTree, hash_row_ints, verify_path
+from ..ops.ntt import coeffs_to_coset_evals, coset_coeffs, coset_lde, intt
+from .air import Air
+from .bus import MAX_PAYLOAD, bus_term, delta_powers
+from .challenger import Challenger
+from .config import DEFAULT_CONFIG, StarkConfig, selector_arrays
+from .lookup import np_ext_mul, np_ext_powers
+from .lowering import eval_quotient_vm, lower_air
+from .proof import FriStep
+from .prover import (
+    _deep_fn,
+    _ext_evals_at,
+    _fold_layer,
+    _grind_device,
+    _inv_2x,
+    _pair_rows,
+    _zeta_powers,
+)
+from .verifier import VerificationError, _eval_periodic, _final_low_degree
+
+__all__ = [
+    "ChipInstance", "ChipProof", "ChipOpening", "MachineQuery",
+    "MachineProof", "prove_machine", "verify_machine", "MACHINE_DOMAIN_TAG",
+    "STAGES",
+]
+
+MACHINE_DOMAIN_TAG = b"zktls-tpu-machine-v2"
+
+#: the prover's stages, in order, as keys of its `timings` dict
+STAGES = ("lde_commit", "perm_commit", "quotient", "ood_openings", "deep",
+          "fri", "queries")
+
+_EXT_BASIS = [Fp4(1), Fp4(0, 1), Fp4(0, 0, 1), Fp4(0, 0, 0, 1)]
+
+
+@dataclass
+class ChipInstance:
+    """One chip's contribution to a machine proof."""
+
+    air: Air
+    trace: np.ndarray        # (n, air.width) plain uint32
+    publics: list[int]       # main public values (bus sum appended later)
+    #: fixed columns (n, air.preprocessed_width) — not supported by the
+    #: port's prover yet; must be None
+    preprocessed: np.ndarray | None = None
+
+
+@dataclass
+class ChipProof:
+    name: str
+    log_n: int
+    publics: list[int]
+    bus_sum: list[int]       # 4 base limbs of the chip's cumulative bus sum
+    trace_root: list[int]
+    quotient_root: list[int]
+    perm_root: list[int] | None
+    tl: list[Fp4]
+    tn: list[Fp4]
+    pl: list[Fp4]
+    pn: list[Fp4]
+    qe: list[Fp4]
+    #: preprocessed-column openings (part of the format; empty in the port)
+    el: list[Fp4] = field(default_factory=list)
+    en: list[Fp4] = field(default_factory=list)
+
+
+@dataclass
+class ChipOpening:
+    trace_row: list[int]
+    trace_path: list[list[int]]
+    quotient_row: list[int]
+    quotient_path: list[list[int]]
+    perm_row: list[int] = field(default_factory=list)
+    perm_path: list[list[int]] = field(default_factory=list)
+    pre_row: list[int] = field(default_factory=list)
+    pre_path: list[list[int]] = field(default_factory=list)
+
+
+@dataclass
+class MachineQuery:
+    index: int
+    openings: list[ChipOpening]     # one per chip, machine order
+    fri_steps: list[FriStep]
+
+
+@dataclass
+class MachineProof:
+    chips: list[ChipProof]
+    fri_roots: list[list[int]]
+    fri_final: list[Fp4]
+    pow_witness: int
+    queries: list[MachineQuery]
+
+    def to_bytes(self) -> bytes:
+        def e(v: Fp4):
+            return list(v.c)
+
+        return cbor.dumps({
+            "v": 2,
+            "chips": [{
+                "name": c.name, "log_n": c.log_n, "public": c.publics,
+                "bus": c.bus_sum, "tr": c.trace_root, "qr": c.quotient_root,
+                "pr": c.perm_root, "tl": [e(v) for v in c.tl],
+                "tn": [e(v) for v in c.tn], "pl": [e(v) for v in c.pl],
+                "pn": [e(v) for v in c.pn], "qe": [e(v) for v in c.qe],
+                "el": [e(v) for v in c.el], "en": [e(v) for v in c.en],
+            } for c in self.chips],
+            "fri_roots": self.fri_roots,
+            "fri_final": [e(v) for v in self.fri_final],
+            "pow": self.pow_witness,
+            "queries": [{
+                "i": q.index,
+                "ops": [{
+                    "tr": o.trace_row, "tp": o.trace_path,
+                    "qr": o.quotient_row, "qp": o.quotient_path,
+                    "pr": o.perm_row, "pp": o.perm_path,
+                    "er": o.pre_row, "ep": o.pre_path,
+                } for o in q.openings],
+                "fs": [{"p": [e(s.pair[0]), e(s.pair[1])], "mp": s.path}
+                       for s in q.fri_steps],
+            } for q in self.queries],
+        })
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "MachineProof":
+        obj = cbor.loads(data)
+
+        def d(v) -> Fp4:
+            return Fp4(*v)
+
+        return cls(
+            chips=[ChipProof(
+                name=c["name"], log_n=c["log_n"], publics=c["public"],
+                bus_sum=c["bus"], trace_root=c["tr"], quotient_root=c["qr"],
+                perm_root=c["pr"], tl=[d(v) for v in c["tl"]],
+                tn=[d(v) for v in c["tn"]], pl=[d(v) for v in c["pl"]],
+                pn=[d(v) for v in c["pn"]], qe=[d(v) for v in c["qe"]],
+                el=[d(v) for v in c.get("el", [])],
+                en=[d(v) for v in c.get("en", [])],
+            ) for c in obj["chips"]],
+            fri_roots=obj["fri_roots"],
+            fri_final=[d(v) for v in obj["fri_final"]],
+            pow_witness=obj["pow"],
+            queries=[MachineQuery(
+                index=q["i"],
+                openings=[ChipOpening(
+                    trace_row=o["tr"], trace_path=o["tp"],
+                    quotient_row=o["qr"], quotient_path=o["qp"],
+                    perm_row=o.get("pr", []), perm_path=o.get("pp", []),
+                    pre_row=o.get("er", []), pre_path=o.get("ep", []),
+                ) for o in q["ops"]],
+                fri_steps=[FriStep(pair=(d(s["p"][0]), d(s["p"][1])),
+                                   path=s["mp"]) for s in q["fs"]],
+            ) for q in obj["queries"]],
+        )
+
+
+# ---------------------------------------------------------------------------
+# shared transcript header
+# ---------------------------------------------------------------------------
+
+
+def _machine_order(items, log_n_of, name_of):
+    """Canonical chip order: largest commitment domain first (FRI joins
+    smaller chips at later layers), ties by name."""
+    return sorted(items, key=lambda it: (-log_n_of(it), name_of(it)))
+
+
+def _observe_header(ch: Challenger, binding: bytes, entries) -> None:
+    """entries: (name, log_n, publics) per chip."""
+    ch.observe_bytes(MACHINE_DOMAIN_TAG)
+    ch.observe_bytes(binding)
+    ch.observe(len(entries))
+    for name, log_n, publics in entries:
+        ch.observe_bytes(name.encode())
+        ch.observe(log_n)
+        ch.observe(len(publics))
+        ch.observe_many(publics)
+
+
+def _sample_challenges(ch: Challenger) -> list[Fp4]:
+    gamma = ch.sample_ext()
+    delta = ch.sample_ext()
+    return [gamma] + delta_powers(delta, MAX_PAYLOAD)
+
+
+# ---------------------------------------------------------------------------
+# prover
+# ---------------------------------------------------------------------------
+
+
+def _resolve_device(device) -> torch.device:
+    """The device the prover runs on: the CUDA card unless the caller names
+    another.  Never falls back to the CPU silently — with no card and no
+    explicit device this raises."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the "
+                "plain torch versions on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is "
+                               "not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def _mont(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Plain uint32 numpy -> Montgomery field tensor on `dev`."""
+    return bb.to_mont(bb.from_numpy(arr, dev))
+
+
+def prove_machine(chips: list[ChipInstance], binding: bytes,
+                  config: StarkConfig = DEFAULT_CONFIG, device=None,
+                  timings: dict | None = None) -> MachineProof:
+    """Prove `chips` as one machine STARK bound to `binding`.
+
+    device: where the tensor work runs — the CUDA card by default (raises
+    without one), "cpu" for the plain torch versions.  timings: if given,
+    receives the seconds of each stage in STAGES (the device is
+    synchronised at each stage boundary)."""
+    dev = _resolve_device(device)
+    t_last = [time.perf_counter()]
+
+    def _mark(label):
+        if timings is None:
+            return
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        timings[label] = timings.get(label, 0.0) + now - t_last[0]
+        t_last[0] = now
+
+    if not chips:
+        raise ValueError("machine proof needs at least one chip")
+    names = [c.air.name for c in chips]
+    if len(set(names)) != len(names):
+        raise ValueError("duplicate chip names in machine proof")
+
+    # per-chip geometry
+    metas = []
+    for inst in chips:
+        n, w = inst.trace.shape
+        log_n = n.bit_length() - 1
+        if 1 << log_n != n:
+            raise ValueError("trace height must be a power of two")
+        if w != inst.air.width:
+            raise ValueError(
+                f"{inst.air.name}: trace width {w} != air width "
+                f"{inst.air.width}")
+        if inst.air.max_constraint_degree + 1 > config.blowup:
+            raise ValueError(f"{inst.air.name}: constraint degree too high")
+        if getattr(inst.air, "preprocessed_width", 0) or \
+                inst.preprocessed is not None:
+            raise NotImplementedError(
+                f"{inst.air.name}: preprocessed columns are not ported yet")
+        metas.append((inst, log_n))
+    metas = _machine_order(metas, lambda m: m[1], lambda m: m[0].air.name)
+    log_N_max = metas[0][1] + config.log_blowup
+    if (1 << (metas[-1][1] + config.log_blowup)) <= config.fri_final_size:
+        raise ValueError(
+            "smallest chip domain must exceed fri_final_size; lower "
+            "fri_final_size or raise the chip's min trace height")
+
+    # per-chip coset shift: s^(2^k) so the chip's domain coincides with the
+    # FRI layer of matching size
+    shifts = {}
+    for inst, log_n in metas:
+        k = log_N_max - (log_n + config.log_blowup)
+        shifts[inst.air.name] = pow(config.shift, 1 << k, P)
+
+    ch = Challenger()
+    _observe_header(
+        ch, binding,
+        [(inst.air.name, log_n, [int(v) % P for v in inst.publics])
+         for inst, log_n in metas])
+
+    # 1. main-trace commits
+    per = {}
+    for inst, log_n in metas:
+        name = inst.air.name
+        trace_m = _mont(inst.trace, dev)
+        lde = coset_lde(trace_m, config.log_blowup, shifts[name])
+        tree = MerkleTree(lde)
+        per[name] = {"log_n": log_n, "s": shifts[name], "trace_m": trace_m,
+                     "lde": lde, "trace_tree": tree,
+                     "trace_root": [int(x) for x in tree.root]}
+    for inst, log_n in metas:
+        ch.observe_many(per[inst.air.name]["trace_root"])
+    _mark("lde_commit")
+
+    # 2. machine challenges + perm commits + bus sums
+    challenges = _sample_challenges(ch)
+    for inst, log_n in metas:
+        d = per[inst.air.name]
+        air = inst.air
+        n = 1 << log_n
+        if air.perm_width:
+            perm_np = air.generate_perm_trace(
+                inst.trace, [int(v) % P for v in inst.publics], challenges)
+            if perm_np.shape != (n, air.perm_width):
+                raise ValueError(f"{air.name}: bad perm trace shape")
+            perm_m = _mont(perm_np, dev)
+            perm_lde = coset_lde(perm_m, config.log_blowup, d["s"])
+            perm_tree = MerkleTree(perm_lde)
+            # the accumulator is the LAST extension element of the perm
+            # trace; its final row is the chip's cumulative bus sum
+            bus_sum = ([int(v) for v in perm_np[-1, -4:]]
+                       if getattr(air, "has_bus", False) else [0, 0, 0, 0])
+            perm_root = [int(x) for x in perm_tree.root]
+        else:
+            perm_m = torch.zeros((n, 0), dtype=bb.DTYPE, device=dev)
+            perm_lde = torch.zeros((n << config.log_blowup, 0),
+                                   dtype=bb.DTYPE, device=dev)
+            perm_tree = perm_root = None
+            bus_sum = [0, 0, 0, 0]
+        d.update(perm_m=perm_m, perm_lde=perm_lde, perm_tree=perm_tree,
+                 perm_root=perm_root, bus_sum=bus_sum)
+    for inst, log_n in metas:
+        d = per[inst.air.name]
+        if inst.air.perm_width:
+            ch.observe_many(d["perm_root"])
+            ch.observe_many(d["bus_sum"])
+    _mark("perm_commit")
+
+    # 3. quotients
+    alpha = ch.sample_ext()
+    for inst, log_n in metas:
+        d = per[inst.air.name]
+        air = inst.air
+        n = 1 << log_n
+        N = n << config.log_blowup
+        s_i = d["s"]
+        publics_full = [int(v) % P for v in inst.publics] + d["bus_sum"]
+        n_constraints = lower_air(
+            air, len(publics_full), len(challenges)).n_constraints
+        apow = np_ext_powers(alpha, max(n_constraints, 1)).astype(np.uint32)
+
+        sels_np = selector_arrays(log_n, config.log_blowup, s_i)
+        sels_m = {k: _mont(sels_np[k], dev)
+                  for k in ("is_first_row", "is_last_row", "is_transition")}
+        inv_zh_m = _mont(sels_np["inv_z_h"], dev)
+        d["sels_np"] = sels_np
+
+        periodic_cols = []
+        for pattern in air.periodic_columns():
+            s_m = pow(s_i, n // len(pattern), P)
+            vals = coset_lde(_mont(np.asarray(pattern, dtype=np.uint32),
+                                   dev), config.log_blowup, s_m)
+            periodic_cols.append(vals.repeat(N // vals.shape[0]))
+        periodic_stack = (torch.stack(periodic_cols, dim=0) if periodic_cols
+                          else torch.zeros((0, N), dtype=bb.DTYPE,
+                                           device=dev))
+
+        quotient_vals = eval_quotient_vm(
+            air, d["lde"], d["perm_lde"], challenges, publics_full, apow,
+            sels_m, inv_zh_m, periodic_stack, config.log_blowup)
+
+        q_coeffs = coset_coeffs(quotient_vals, s_i)
+        chunks = [q_coeffs[k * n : (k + 1) * n]
+                  for k in range(config.blowup)]
+        q_cols = torch.cat(
+            [coeffs_to_coset_evals(c, config.log_blowup, s_i)
+             for c in chunks], dim=1)
+        q_tree = MerkleTree(q_cols)
+        d.update(q_cols=q_cols, q_chunks=chunks, q_tree=q_tree,
+                 q_root=[int(x) for x in q_tree.root])
+    for inst, log_n in metas:
+        ch.observe_many(per[inst.air.name]["q_root"])
+    _mark("quotient")
+
+    # 4. out-of-domain openings
+    zeta = ch.sample_ext()
+    for inst, log_n in metas:
+        d = per[inst.air.name]
+        n = 1 << log_n
+        g_zeta = zeta * two_adic_root(log_n)
+        zpows = _zeta_powers(zeta, n, dev)
+        gzpows = _zeta_powers(g_zeta, n, dev)
+        trace_coeffs = intt(d["trace_m"])
+        tl = _ext_evals_at(trace_coeffs, zpows)
+        tn = _ext_evals_at(trace_coeffs, gzpows)
+        qe = np.concatenate(
+            [_ext_evals_at(c, zpows) for c in d["q_chunks"]], axis=0)
+        if inst.air.perm_width:
+            perm_coeffs = intt(d["perm_m"])
+            pl = _ext_evals_at(perm_coeffs, zpows)
+            pn = _ext_evals_at(perm_coeffs, gzpows)
+        else:
+            pl = np.zeros((0, 4), dtype=np.uint32)
+            pn = np.zeros((0, 4), dtype=np.uint32)
+        empty = np.zeros((0, 4), dtype=np.uint32)
+        evals_np = {"tl": tl, "tn": tn, "pl": pl, "pn": pn, "qe": qe,
+                    "el": empty, "en": empty}
+        d["evals"] = {k: [Fp4(*[int(x) for x in row]) for row in arr]
+                      for k, arr in evals_np.items()}
+        d["evals_np"] = evals_np
+        d["g_zeta"] = g_zeta
+        for k in ("tl", "tn", "pl", "pn", "qe", "el", "en"):
+            for v in d["evals"][k]:
+                ch.observe_ext(v)
+        # free what later stages do not read
+        for k in ("trace_m", "perm_m", "q_chunks"):
+            d.pop(k)
+    _mark("ood_openings")
+
+    # 5. DEEP composition per chip, grouped by domain size.  β-power
+    # budget, per chip: ζ-group [trace ‖ perm ‖ quotient] then g·ζ-group
+    # [trace ‖ perm]
+    beta = ch.sample_ext()
+    total_terms = 0
+    for inst, log_n in metas:
+        d = per[inst.air.name]
+        w = inst.air.width + inst.air.perm_width
+        d["w_z"] = w + int(d["q_cols"].shape[1])
+        d["w_gz"] = w
+        d["beta_off"] = total_terms
+        total_terms += d["w_z"] + d["w_gz"]
+    bpow_all = bb.np_to_mont(np_ext_powers(beta, total_terms).astype(
+        np.uint32))
+
+    deep_by_log: dict[int, torch.Tensor] = {}
+    for inst, log_n in metas:
+        d = per[inst.air.name]
+        log_N = log_n + config.log_blowup
+        N = 1 << log_N
+        x_ext = ex.ext_from_base(_mont(d["sels_np"]["x"], dev))
+        zeta_arr = bb.from_numpy(ex.from_fp4(zeta), dev).expand(N, 4)
+        gzeta_arr = bb.from_numpy(ex.from_fp4(d["g_zeta"]), dev).expand(N, 4)
+        inv_x_zeta = ex.ext_inv(ex.ext_sub(x_ext, zeta_arr))
+        inv_x_gzeta = ex.ext_inv(ex.ext_sub(x_ext, gzeta_arr))
+        env = d["evals_np"]
+        mat_z = torch.cat([d["lde"], d["perm_lde"], d["q_cols"]], dim=1)
+        mat_gz = torch.cat([d["lde"], d["perm_lde"]], dim=1)
+        ev_z = bb.from_numpy(bb.np_to_mont(np.concatenate(
+            [env["tl"], env["pl"], env["qe"]], axis=0)), dev)
+        ev_gz = bb.from_numpy(bb.np_to_mont(np.concatenate(
+            [env["tn"], env["pn"]], axis=0)), dev)
+        bslice = bb.from_numpy(
+            bpow_all[d["beta_off"] : d["beta_off"] + d["w_z"] + d["w_gz"]],
+            dev)
+        deep = _deep_fn(mat_z, mat_gz, bslice, ev_z, ev_gz, inv_x_zeta,
+                        inv_x_gzeta)
+        del mat_z, mat_gz
+        if log_N in deep_by_log:
+            deep_by_log[log_N] = ex.ext_add(deep_by_log[log_N], deep)
+        else:
+            deep_by_log[log_N] = deep
+    _mark("deep")
+
+    # 6. mixed-height FRI (host-driven fold loop)
+    fri_roots = []
+    fri_trees = []
+    fri_layers = []
+    cur = deep_by_log[log_N_max]
+    cur_shift = config.shift
+    cur_log = log_N_max
+    while (1 << cur_log) > config.fri_final_size:
+        tree = MerkleTree(_pair_rows(cur))
+        root = [int(x) for x in tree.root]
+        fri_trees.append(tree)
+        fri_roots.append(root)
+        fri_layers.append(cur)
+        ch.observe_many(root)
+        beta_l = ch.sample_ext()
+        cur = _fold_layer(cur, beta_l, _inv_2x(cur_log, cur_shift))
+        cur_shift = cur_shift * cur_shift % P
+        cur_log -= 1
+        if cur_log in deep_by_log:
+            cur = ex.ext_add(cur, deep_by_log[cur_log])
+    final_plain = bb.np_from_mont(bb.to_numpy(cur))
+    fri_final = [Fp4(*[int(x) for x in row]) for row in final_plain]
+    for v in fri_final:
+        ch.observe_ext(v)
+    _mark("fri")
+
+    # 7. grinding + queries
+    pow_witness = 0
+    if config.pow_bits:
+        pow_witness = _grind_device(ch, config.pow_bits, dev)
+    ch.check_witness(config.pow_bits, pow_witness)
+    q_indices = [ch.sample_bits(log_N_max)
+                 for _ in range(config.num_queries)]
+
+    # gather queried rows per chip (index = q mod N_i)
+    rows_by_chip = {}
+    for inst, log_n in metas:
+        d = per[inst.air.name]
+        N_i = 1 << (log_n + config.log_blowup)
+        idx_np = np.array([q % N_i for q in q_indices], dtype=np.int64)
+        idx = torch.from_numpy(idx_np).to(dev)
+
+        def _rows(mat):
+            return bb.np_from_mont(bb.to_numpy(mat[idx]))
+
+        rows_by_chip[inst.air.name] = {
+            "idx": [int(j) for j in idx_np],
+            "trace": _rows(d["lde"]),
+            "quot": _rows(d["q_cols"]),
+            "perm": _rows(d["perm_lde"]) if inst.air.perm_width else None,
+        }
+
+    # per-layer FRI pair gathers
+    fri_pairs: list[np.ndarray] = []
+    qq_per_layer: list[list[int]] = []
+    cur_qs = list(q_indices)
+    for ell, layer_vals in enumerate(fri_layers):
+        half = (1 << (log_N_max - ell)) // 2
+        js = [q % half for q in cur_qs]
+        idx = torch.tensor(js + [j + half for j in js], dtype=torch.int64,
+                           device=dev)
+        fri_pairs.append(bb.np_from_mont(bb.to_numpy(layer_vals[idx])))
+        qq_per_layer.append(js)
+        cur_qs = js
+
+    def _path(tree, j):
+        return [[int(x) for x in h] for h in tree.open(j)]
+
+    queries = []
+    nq = config.num_queries
+    for qi_pos, q in enumerate(q_indices):
+        openings = []
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            rc = rows_by_chip[inst.air.name]
+            j = rc["idx"][qi_pos]
+            openings.append(ChipOpening(
+                trace_row=[int(x) for x in rc["trace"][qi_pos]],
+                trace_path=_path(d["trace_tree"], j),
+                quotient_row=[int(x) for x in rc["quot"][qi_pos]],
+                quotient_path=_path(d["q_tree"], j),
+                perm_row=([int(x) for x in rc["perm"][qi_pos]]
+                          if rc["perm"] is not None else []),
+                perm_path=(_path(d["perm_tree"], j)
+                           if d["perm_tree"] is not None else []),
+            ))
+        steps = []
+        for ell, tree in enumerate(fri_trees):
+            pair = (Fp4(*[int(x) for x in fri_pairs[ell][qi_pos]]),
+                    Fp4(*[int(x) for x in fri_pairs[ell][nq + qi_pos]]))
+            steps.append(FriStep(pair=pair,
+                                 path=_path(tree, qq_per_layer[ell][qi_pos])))
+        queries.append(MachineQuery(index=q, openings=openings,
+                                    fri_steps=steps))
+    _mark("queries")
+
+    return MachineProof(
+        chips=[ChipProof(
+            name=inst.air.name, log_n=log_n,
+            publics=[int(v) % P for v in inst.publics],
+            bus_sum=per[inst.air.name]["bus_sum"],
+            trace_root=per[inst.air.name]["trace_root"],
+            quotient_root=per[inst.air.name]["q_root"],
+            perm_root=per[inst.air.name]["perm_root"],
+            **per[inst.air.name]["evals"],
+        ) for inst, log_n in metas],
+        fri_roots=fri_roots,
+        fri_final=fri_final,
+        pow_witness=pow_witness,
+        queries=queries,
+    )
+
+
+# ---------------------------------------------------------------------------
+# verifier (pure host Python, mirrors the transcript exactly)
+# ---------------------------------------------------------------------------
+
+
+def _check(cond: bool, what: str) -> None:
+    if not cond:
+        raise VerificationError(what)
+
+
+def verify_machine(airs: list[Air], proof: MachineProof, binding: bytes,
+                   public_messages: list[tuple] | None = None,
+                   config: StarkConfig = DEFAULT_CONFIG) -> bool:
+    """Verify a machine proof (host only; no device work).
+
+    public_messages: the verifier-side bus messages, each (tag, payload)
+    or (tag, payload, mult).  mult = −1 (default) means the verifier
+    RECEIVES the message (a chip must have sent it — e.g. a digest the SHA
+    chip published); mult = +1 means the verifier SENDS it.  The global bus
+    balance Σ chip bus sums + Σ mult/(γ−fp(msg)) must be zero; any
+    missing, extra or altered message breaks it.
+    Raises VerificationError on failure; returns True on success.
+    """
+    public_messages = public_messages or []
+    air_by_name = {a.name: a for a in airs}
+    _check(len(air_by_name) == len(airs), "duplicate airs")
+    if any(getattr(a, "preprocessed_width", 0) for a in airs):
+        raise NotImplementedError("preprocessed columns are not ported yet")
+    # multiset equality: a proof must contain EVERY air exactly once
+    _check(sorted(c.name for c in proof.chips) == sorted(air_by_name),
+           "chip name multiset != air set")
+    expect_order = _machine_order(
+        proof.chips, lambda c: c.log_n + config.log_blowup,
+        lambda c: c.name)
+    _check([c.name for c in proof.chips] ==
+           [c.name for c in expect_order], "chip order not canonical")
+
+    log_N_max = proof.chips[0].log_n + config.log_blowup
+    N_max = 1 << log_N_max
+    s = config.shift
+
+    # geometry + shifts
+    geo = []
+    for cp in proof.chips:
+        air = air_by_name[cp.name]
+        log_N = cp.log_n + config.log_blowup
+        # a chip whose commitment domain does not exceed fri_final_size
+        # would never join the FRI walk: reject outright
+        _check((1 << log_N) > config.fri_final_size,
+               f"{cp.name}: commitment domain (2^{log_N}) must exceed "
+               "fri_final_size")
+        k = log_N_max - log_N
+        s_i = pow(s, 1 << k, P)
+        n = 1 << cp.log_n
+        _check(len(cp.publics) == air.num_public,
+               f"{cp.name}: bad public count")
+        _check(len(cp.tl) == air.width and len(cp.tn) == air.width,
+               f"{cp.name}: bad trace eval count")
+        _check(len(cp.pl) == air.perm_width and
+               len(cp.pn) == air.perm_width,
+               f"{cp.name}: bad perm eval count")
+        _check(len(cp.qe) == 4 * config.blowup,
+               f"{cp.name}: bad quotient eval count")
+        _check((cp.perm_root is not None) == bool(air.perm_width),
+               f"{cp.name}: perm root mismatch")
+        _check(len(cp.bus_sum) == 4, f"{cp.name}: bad bus sum")
+        if not getattr(air, "has_bus", False):
+            _check(cp.bus_sum == [0, 0, 0, 0],
+                   f"{cp.name}: non-zero bus sum on busless chip")
+        _check(not cp.el and not cp.en,
+               f"{cp.name}: bad preprocessed eval count")
+        geo.append((cp, air, n, log_N, s_i))
+
+    # --- transcript replay -------------------------------------------------
+    ch = Challenger()
+    _observe_header(ch, binding,
+                    [(cp.name, cp.log_n, cp.publics) for cp in proof.chips])
+    for cp in proof.chips:
+        ch.observe_many(cp.trace_root)
+    challenges = _sample_challenges(ch)
+    for cp, air, *_ in geo:
+        if air.perm_width:
+            ch.observe_many(cp.perm_root)
+            ch.observe_many(cp.bus_sum)
+    alpha = ch.sample_ext()
+    for cp in proof.chips:
+        ch.observe_many(cp.quotient_root)
+    zeta = ch.sample_ext()
+    for cp in proof.chips:
+        for v in (cp.tl + cp.tn + cp.pl + cp.pn + cp.qe + cp.el + cp.en):
+            ch.observe_ext(v)
+    beta = ch.sample_ext()
+    fold_betas = []
+    n_layers = 0
+    size = N_max
+    while size > config.fri_final_size:
+        size //= 2
+        n_layers += 1
+    _check(len(proof.fri_roots) == n_layers, "bad FRI layer count")
+    _check(len(proof.fri_final) == size, "bad FRI final size")
+    for root in proof.fri_roots:
+        ch.observe_many(root)
+        fold_betas.append(ch.sample_ext())
+    for v in proof.fri_final:
+        ch.observe_ext(v)
+    _check(ch.check_witness(config.pow_bits, proof.pow_witness),
+           "grinding check failed")
+    _check(len(proof.queries) == config.num_queries, "bad query count")
+    query_indices = [ch.sample_bits(log_N_max)
+                     for _ in range(config.num_queries)]
+
+    # --- global bus balance --------------------------------------------------
+    total = Fp4(0)
+    for cp in proof.chips:
+        total = total + Fp4(*cp.bus_sum)
+    for entry in public_messages:
+        tag, payload = entry[0], entry[1]
+        mult = entry[2] if len(entry) > 2 else -1
+        total = total + mult * bus_term(challenges, tag, payload)
+    _check(total == Fp4(0), "global bus imbalance")
+
+    # --- per-chip DEEP-ALI constraint identity at ζ -------------------------
+    for cp, air, n, log_N, s_i in geo:
+        g = two_adic_root(cp.log_n)
+        z_h = zeta**n - 1
+        g_last = pow(g, n - 1, P)
+        sels = {
+            "is_first_row": z_h / (zeta - 1),
+            "is_last_row": z_h / (zeta - g_last),
+            "is_transition": zeta - g_last,
+        }
+        periodic_at_zeta = [
+            _eval_periodic(pattern, zeta, n)
+            for pattern in air.periodic_columns()]
+        publics_full = list(cp.publics) + list(cp.bus_sum)
+        folded = air.fold_constraints_scalar(
+            cp.tl, cp.tn, publics_full, sels, alpha,
+            periodic=periodic_at_zeta, perm_local=cp.pl, perm_next=cp.pn,
+            challenges=challenges)
+        zeta_n = zeta**n
+        q_at_zeta = Fp4(0)
+        zpow = Fp4(1)
+        for k in range(config.blowup):
+            chunk = Fp4(0)
+            for ell in range(4):
+                chunk = chunk + _EXT_BASIS[ell] * cp.qe[4 * k + ell]
+            q_at_zeta = q_at_zeta + zpow * chunk
+            zpow = zpow * zeta_n
+        _check(folded == z_h * q_at_zeta,
+               f"{cp.name}: constraint identity failed at zeta")
+
+    # --- per-query checks ----------------------------------------------------
+    # vectorized DEEP prep: global β powers + per-chip eval vectors
+    total_terms = 0
+    deep_prep = {}
+    for cp, air, n, log_N, s_i in geo:
+        w_z = air.width + air.perm_width + 4 * config.blowup
+        w_gz = air.width + air.perm_width
+        ev_z = np.array([list(v.c) for v in (cp.tl + cp.pl + cp.qe)],
+                        dtype=np.uint64)
+        ev_gz = np.array([list(v.c) for v in (cp.tn + cp.pn)],
+                         dtype=np.uint64)
+        deep_prep[cp.name] = (total_terms, w_z, w_gz, ev_z, ev_gz)
+        total_terms += w_z + w_gz
+    bpow_np = np_ext_powers(beta, max(total_terms, 1))
+
+    for mq, expect_index in zip(proof.queries, query_indices):
+        _check(mq.index == expect_index, "query index mismatch")
+        q = mq.index
+        _check(len(mq.openings) == len(geo), "bad opening count")
+        # Merkle checks + per-chip reduced openings r_i(x) with GLOBAL
+        # β-power offsets
+        scaled: dict[int, Fp4] = {}
+        for (cp, air, n, log_N, s_i), op in zip(geo, mq.openings):
+            N_i = 1 << log_N
+            j = q % N_i
+            pw = air.perm_width
+            _check(len(op.trace_row) == air.width,
+                   f"{cp.name}: bad trace row")
+            _check(len(op.quotient_row) == 4 * config.blowup,
+                   f"{cp.name}: bad quotient row")
+            _check(not op.pre_row and not op.pre_path,
+                   f"{cp.name}: bad preprocessed row")
+            _check(verify_path(
+                hash_row_ints([v % P for v in op.trace_row]), j,
+                op.trace_path, cp.trace_root),
+                f"{cp.name}: trace Merkle path failed")
+            _check(verify_path(
+                hash_row_ints([v % P for v in op.quotient_row]), j,
+                op.quotient_path, cp.quotient_root),
+                f"{cp.name}: quotient Merkle path failed")
+            if pw:
+                _check(len(op.perm_row) == pw, f"{cp.name}: bad perm row")
+                _check(verify_path(
+                    hash_row_ints([v % P for v in op.perm_row]), j,
+                    op.perm_path, cp.perm_root),
+                    f"{cp.name}: perm Merkle path failed")
+            x = Fp4(s_i * pow(two_adic_root(log_N), j, P) % P)
+            g_zeta = zeta * two_adic_root(cp.log_n)
+            off, w_z, w_gz, ev_z, ev_gz = deep_prep[cp.name]
+            row_z = np.array(
+                [v % P for v in (list(op.trace_row) + list(op.perm_row)
+                                 + list(op.quotient_row))],
+                dtype=np.uint64)
+            diff_z = (P - ev_z) % P
+            diff_z[:, 0] = (diff_z[:, 0] + row_z) % P
+            terms = np_ext_mul(bpow_np[off : off + w_z], diff_z)
+            num_z = Fp4(*[int(v) for v in terms.sum(axis=0) % P])
+            diff_gz = (P - ev_gz) % P
+            diff_gz[:, 0] = (diff_gz[:, 0] + row_z[:w_gz]) % P
+            terms = np_ext_mul(bpow_np[off + w_z : off + w_z + w_gz],
+                               diff_gz)
+            num_gz = Fp4(*[int(v) for v in terms.sum(axis=0) % P])
+            r = num_z / (x - zeta) + num_gz / (x - g_zeta)
+            scaled[log_N] = scaled.get(log_N, Fp4(0)) + r
+        # FRI walk with joiners
+        v = Fp4(0)
+        qq = q
+        cur_shift = s
+        for ell, step in enumerate(mq.fri_steps):
+            log_l = log_N_max - ell
+            if log_l in scaled:
+                v = v + scaled[log_l]
+            half = (1 << log_l) // 2
+            j = qq % half
+            row = [c for val in step.pair for c in val.c]
+            _check(verify_path(hash_row_ints(row), j, step.path,
+                               proof.fri_roots[ell]),
+                   f"FRI layer {ell} Merkle path failed")
+            mine = step.pair[0] if qq < half else step.pair[1]
+            _check(mine == v, f"FRI layer {ell} value mismatch")
+            x_j = Fp4(cur_shift * pow(two_adic_root(log_l), j, P) % P)
+            a, b_ = step.pair
+            v = (a + b_) / 2 + fold_betas[ell] * (a - b_) / (2 * x_j)
+            cur_shift = cur_shift * cur_shift % P
+            qq = j
+        _check(v == proof.fri_final[qq], "FRI final value mismatch")
+
+    _final_low_degree(proof.fri_final, config, log_N_max, n_layers)
+    return True
