@@ -7,16 +7,22 @@ Phases, in order; any failure raises and the script exits non-zero
 without printing a result:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the Poseidon2 kernel (K1) from zktls_tpu_torch/csrc/;
-  3. hold K1 against its plain torch version on the card (widths 16 and
-     24, several batch sizes, rows inside a larger batch) and time both at
-     the main path's shape beside the card's bound;
+  2. build the Poseidon2 kernels (K1: permute, hash_rows, merkle_levels)
+     from zktls_tpu_torch/csrc/;
+  3. hold each entry point against its plain torch version on the card,
+     exactly: permute at widths 16 and 24, several batch sizes, rows inside
+     a larger batch; hash_rows at several (N, W), the main path's
+     largest matrix among them, and its refusal of a strided matrix; merkle_levels, every level, at several N.  Time each
+     and its plain version at the main path's shape beside the card's
+     bound;
   4. the main path: prove the 32768 × 639 Sha256Air machine (8 messages of
      3,000 bytes, DEFAULT_CONFIG) on the card, with the kernel launch
      counters reset just before and read just after; verify the proof and
      reject one with a tampered digest limb;
   5. the same prove at 256 rows on the card and on the CPU: the proof
-     bytes must be identical;
+     bytes must be identical; then the grinding path (the same machine
+     with 8 proof-of-work bits), the one caller of the permute entry
+     point, with the counters reset before and read after;
   6. one JSON line describing each kernel;
   7. last line: {"ok": true, "device": {...}}.
 
@@ -25,6 +31,7 @@ Needs one card, nvcc (/usr/local/cuda) and no network.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -80,6 +87,7 @@ def main() -> int:
 
     from zktls_tpu_torch.ops import babybear as bb
     from zktls_tpu_torch.ops import cuda_poseidon2 as k1
+    from zktls_tpu_torch.ops import merkle as mk
     from zktls_tpu_torch.ops import poseidon2 as p2
     from zktls_tpu_torch.stark.chips.sha256 import Sha256Air
     from zktls_tpu_torch.stark.config import DEFAULT_CONFIG
@@ -108,43 +116,95 @@ def main() -> int:
     print(f"build: poseidon2.cu {time.perf_counter() - t0:.2f} s; "
           f"ptxas: {regs}")
 
-    # 3. K1 against its plain version on the card
+    # 3. each entry point against its plain version on the card
     rng = np.random.default_rng(SEED)
 
-    def rand_states(n, width):
+    def rand_field(*shape):
         return bb.from_numpy(bb.np_to_mont(
-            rng.integers(0, bb.P, (n, width), dtype=np.uint32)), dev)
+            rng.integers(0, bb.P, shape, dtype=np.uint32)), dev)
 
-    max_err = 0
+    def abs_err(got, want):
+        _require(got.shape == want.shape and got.dtype == want.dtype,
+                 f"kernel gave {got.dtype} {tuple(got.shape)}, plain "
+                 f"{want.dtype} {tuple(want.shape)}")
+        return int((got - want).abs().max())
+
+    errs = {"permute": 0, "hash_rows": 0, "merkle_levels": 0}
     for width in (16, 24):
         for n in (1, 511, 513, 131072):
-            x = rand_states(n, width)
-            got = p2.permute_batch(x)
-            want = p2.permute_batch_plain(x)
-            err = int((got - want).abs().max())
-            max_err = max(max_err, err)
-            _require(err == 0, f"K1 != plain at width {width}, N={n}")
-        big = rand_states(1529, width)
+            x = rand_field(n, width)
+            err = abs_err(p2.permute_batch(x), p2.permute_batch_plain(x))
+            errs["permute"] = max(errs["permute"], err)
+            _require(err == 0, f"permute != plain at width {width}, N={n}")
+        big = rand_field(1529, width)
         _require(bool((p2.permute_batch(big[:5].contiguous())
                        == p2.permute_batch(big)[:5]).all()),
-                 f"K1 rows depend on their batch at width {width}")
-    print(f"kernel: K1 == plain at widths 16/24, N in 1/511/513/131072 "
-          f"(max abs err {max_err})")
+                 f"permute rows depend on their batch at width {width}")
+    for n, w in ((1, 1), (513, 8), (513, 17), (4096, 639), (131072, 16)):
+        rows = rand_field(n, w)
+        err = abs_err(mk.hash_rows(rows), mk.hash_rows_plain(rows))
+        errs["hash_rows"] = max(errs["hash_rows"], err)
+        _require(err == 0, f"hash_rows != plain at ({n}, {w})")
+    try:
+        mk.hash_rows(rand_field(64, 40)[:, ::2])
+    except ValueError as e:
+        print(f"kernel: hash_rows refuses a strided matrix ({e})")
+    else:
+        raise RuntimeError("hash_rows took a strided matrix")
+    for n in (2, 64, 4096, 131072):
+        leaves = rand_field(n, mk.DIGEST_WIDTH)
+        got, want = mk.tree_levels(leaves), mk.tree_levels_plain(leaves)
+        err = abs_err(got, want)
+        errs["merkle_levels"] = max(errs["merkle_levels"], err)
+        _require(err == 0, f"merkle_levels != plain at N={n}")
+        _require(mk.level_bounds(n)[-1] == (2 * n - 2, 2 * n - 1),
+                 "the root is not the buffer's last row")
+    torch.cuda.synchronize(dev)
+    print("kernel: permute == plain at widths 16/24, N in 1/511/513/131072;"
+          " hash_rows == plain at (1,1) (513,8) (513,17) (4096,639) "
+          "(131072,16); merkle_levels == plain, every level, at N in "
+          f"2/64/4096/131072 (max abs err {max(errs.values())})")
 
-    n_main, w_main = 131072, 24
-    x32 = rand_states(n_main, w_main).to(torch.int32)
+    n_main, w_main = 131072, 639
+    x32 = rand_field(n_main, 24).to(torch.int32)
     x64 = x32.to(bb.DTYPE)
-    k1_ms = _time_ms(lambda: k1.permute_batch(x32), reps=50)
-    plain_ms = _time_ms(lambda: p2.permute_batch_plain(x64), reps=3,
-                        runs=3)
-    b = k1.bound({w_main: n_main}, sms, clock_mhz)
-    bound_ms, bound_by = b["bound_s"] * 1e3, b["bound_by"]
-    print(f"kernel: K1 {k1_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {b['multiplies']} int32 "
-          f"multiplies at {k1.INT_MULS_PER_CLOCK_PER_SM}/clk/SM x {sms} SMs"
-          f" x {clock_mhz} MHz; bytes {b['bytes_s'] * 1e3:.4f} ms) at "
-          f"({n_main}, {w_main}); no single PyTorch call computes "
-          "Poseidon2, library_ms null")
+    rows = rand_field(n_main, w_main)
+    buf = torch.empty((2 * n_main - 1, mk.DIGEST_WIDTH), dtype=bb.DTYPE,
+                      device=dev)
+    buf[:n_main] = rand_field(n_main, mk.DIGEST_WIDTH)
+    err = abs_err(k1.hash_rows(rows), mk.hash_rows_plain(rows))
+    errs["hash_rows"] = max(errs["hash_rows"], err)
+    _require(err == 0, f"hash_rows != plain at ({n_main}, {w_main})")
+    print(f"kernel: hash_rows == plain at ({n_main}, {w_main}), the main "
+          "path's largest matrix")
+    timed = {
+        "permute": (
+            f"({n_main}, 24)",
+            _time_ms(lambda: k1.permute_batch(x32), reps=50),
+            _time_ms(lambda: p2.permute_batch_plain(x64), reps=3, runs=3),
+            k1.bound({24: n_main}, sms, clock_mhz)),
+        "hash_rows": (
+            f"({n_main}, {w_main})",
+            _time_ms(lambda: k1.hash_rows(rows), reps=5),
+            _time_ms(lambda: mk.hash_rows_plain(rows), reps=1, runs=3),
+            k1.hash_rows_bound(n_main, w_main, sms, clock_mhz)),
+        "merkle_levels": (
+            f"{n_main} leaves",
+            _time_ms(lambda: k1.merkle_levels(buf), reps=20),
+            _time_ms(lambda: mk.tree_levels_plain(buf[:n_main]), reps=1,
+                     runs=3),
+            k1.merkle_levels_bound(n_main, sms, clock_mhz)),
+    }
+    del rows, x32, x64, buf
+    for name, (shape, ms, plain_ms, b) in timed.items():
+        print(f"kernel: {name} {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b['bound_s'] * 1e3:.4f} ms ({b['bound_by']}: "
+              f"{b['multiplies']} int32 multiplies at "
+              f"{k1.INT_MULS_PER_CLOCK_PER_SM}/clk/SM x {sms} SMs x "
+              f"{clock_mhz} MHz; {b['bytes']} bytes "
+              f"{b['bytes_s'] * 1e3:.4f} ms) at {shape}")
+    print("kernel: no single PyTorch call computes Poseidon2, a sponge or a "
+          "tree over it: library_ms null")
 
     # 4. the main path, through K1
     inst, msgs = sha_machine(MAIN_MESSAGES, MAIN_BYTES, SEED)
@@ -153,23 +213,25 @@ def main() -> int:
     binding = b"chip-smoke sha256 machine"
     torch.cuda.reset_peak_memory_stats(dev)
     timings: dict = {}
-    k1.launches = 0
+    k1.reset_launches()
     p2.plain_calls = 0
     t0 = time.perf_counter()
     proof = prove_machine([inst], binding, DEFAULT_CONFIG, device=dev,
                           timings=timings)
     torch.cuda.synchronize(dev)
     prove_s = time.perf_counter() - t0
-    launches, plain_calls = k1.launches, p2.plain_calls
-    _require(launches > 0, "the main path launched K1 no time")
+    launches, plain_calls = dict(k1.launches), p2.plain_calls
+    for name in ("hash_rows", "merkle_levels"):
+        _require(launches[name] > 0, f"the main path launched {name} no time")
     _require(plain_calls == 0, "the main path ran the plain Poseidon2")
     blob = proof.to_bytes()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     print("main: Sha256Air 32768x639 DEFAULT_CONFIG prove "
           f"{prove_s:.2f} s; stages " + ", ".join(
               f"{k} {timings[k]:.3f}" for k in STAGES)
-          + f"; proof {len(blob)} bytes; K1 launches {launches}, plain "
-          f"calls {plain_calls}; peak device memory {peak_gib:.2f} GiB")
+          + f"; proof {len(blob)} bytes; K1 launches {launches}, total "
+          f"{sum(launches.values())}, plain calls {plain_calls}; peak device "
+          f"memory {peak_gib:.2f} GiB")
     t0 = time.perf_counter()
     _require(verify_machine([Sha256Air()], MachineProof.from_bytes(blob),
                             binding, msgs, DEFAULT_CONFIG),
@@ -188,7 +250,7 @@ def main() -> int:
         raise RuntimeError("verifier accepted a tampered digest limb")
 
     # 5. card vs CPU at 256 rows
-    small, _ = sha_machine(2, 100, SEED)
+    small, small_msgs = sha_machine(2, 100, SEED)
     _require(small.trace.shape == (256, 639), "small trace shape")
     on_card = prove_machine([small], binding, DEFAULT_CONFIG,
                             device=dev).to_bytes()
@@ -196,23 +258,36 @@ def main() -> int:
                            device="cpu").to_bytes()
     _require(on_card == on_cpu, "card and CPU proofs differ at 256 rows")
     print(f"path: 256-row proof identical on card and CPU "
-          f"({len(on_card)} bytes); total {time.perf_counter() - t_start:.1f}"
-          " s")
+          f"({len(on_card)} bytes)")
+    grind_config = dataclasses.replace(DEFAULT_CONFIG, pow_bits=8)
+    k1.reset_launches()
+    p2.plain_calls = 0
+    ground = prove_machine([small], binding, grind_config, device=dev)
+    launches["permute"] = k1.launches["permute"]
+    _require(launches["permute"] > 0, "grinding launched permute no time")
+    _require(p2.plain_calls == 0, "grinding ran the plain Poseidon2")
+    _require(verify_machine([Sha256Air()],
+                            MachineProof.from_bytes(ground.to_bytes()),
+                            binding, small_msgs, grind_config),
+             "verifier rejected the ground proof")
+    print(f"path: 256-row prove with 8 grinding bits verified, permute "
+          f"launches {launches['permute']} (witness {ground.pow_witness}); "
+          f"total {time.perf_counter() - t_start:.1f} s")
 
     # 6. kernels
     print(json.dumps({"kernels": [{
-        "name": "poseidon2_permute",
+        "name": f"poseidon2_{name}",
         "route": "cuda",
         "source": "zktls_tpu_torch/csrc/poseidon2.cu",
         "replaces": "zktls_tpu/ops/pallas_poseidon2.py:107",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k1_ms,
+        "launches": launches[name],
+        "max_abs_err": errs[name],
+        "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "bound_ms": b["bound_s"] * 1e3,
+        "bound_by": b["bound_by"],
         "library_ms": None,
-    }]}))
+    } for name, (_, ms, plain_ms, b) in timed.items()]}))
     # 7. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -85,3 +85,48 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
         cuda_poseidon2.permute_batch(states)          # not on a card
     with pytest.raises(ValueError):
         tp2.permute_batch(torch.zeros((4, 20), dtype=tbb.DTYPE))
+
+
+def test_permute_wrapper_checks_layout_before_device():
+    """Without a card: wrong dtype, width and layout are refused as such;
+    a well-formed CPU tensor is refused for not being on a CUDA device."""
+    with pytest.raises(TypeError):
+        cuda_poseidon2.permute_batch(torch.zeros((4, 16), dtype=torch.int64))
+    with pytest.raises(ValueError, match=r"16\|24"):
+        cuda_poseidon2.permute_batch(torch.zeros((4, 20), dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_poseidon2.permute_batch(
+            torch.zeros((4, 32), dtype=torch.int32)[:, ::2])
+    with pytest.raises(ValueError, match="2-D"):
+        cuda_poseidon2.permute_batch(torch.zeros(16, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_poseidon2.permute_batch(torch.zeros((4, 24), dtype=torch.int32))
+
+
+def test_launch_counters_per_entry_point():
+    assert set(cuda_poseidon2.launches) == {"permute", "hash_rows",
+                                            "merkle_levels"}
+    cuda_poseidon2.launches["hash_rows"] += 3
+    cuda_poseidon2.reset_launches()
+    assert cuda_poseidon2.launches == {"permute": 0, "hash_rows": 0,
+                                       "merkle_levels": 0}
+
+
+@pytest.mark.parametrize("width", [16, 24])
+def test_bound_counts(width):
+    """The bound's counts: 3 multiplies per Montgomery product, 8·w·4 + RP·
+    (4 + w) products per state; the fused entry points count the same
+    permutations over the bytes they move."""
+    rp = {16: 13, 24: 21}[width]
+    b = cuda_poseidon2.bound({width: 1000}, 132, 1980.0)
+    assert b["multiplies"] == 1000 * 3 * (8 * width * 4 + rp * (4 + width))
+    assert b["bytes"] == 1000 * width * 8
+    assert b["bound_by"] == "operations"
+    h = cuda_poseidon2.hash_rows_bound(1000, 639, 132, 1980.0)
+    assert h["multiplies"] == 40 * cuda_poseidon2.bound(
+        {24: 1000}, 132, 1980.0)["multiplies"]
+    assert h["bytes"] == 8 * 1000 * (639 + 8)
+    t = cuda_poseidon2.merkle_levels_bound(1024, 132, 1980.0)
+    assert t["multiplies"] == cuda_poseidon2.bound(
+        {16: 1023}, 132, 1980.0)["multiplies"]
+    assert t["bytes"] == 64 * (1024 + 1023)

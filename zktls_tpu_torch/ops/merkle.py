@@ -7,10 +7,12 @@ Counterpart of zktls_tpu.ops.merkle, same scheme:
   * node = 2-to-1 compression: permute(left ‖ right), first 8 lanes;
   * levels are halved bottom-up with one batched permutation per level.
 
-Every device permutation goes through `poseidon2.permute_batch`, so on the
-card through the hand-written kernel.  Device tensors are Montgomery form;
-the host-side scalar mirror (`hash_row_ints`, `compress_ints`,
-`verify_path`) works on plain ints for the verifier.
+On a CUDA tensor the leaf sponge and the levels run in the hand-written
+kernels (`cuda_poseidon2.hash_rows`, one launch per matrix, and
+`cuda_poseidon2.merkle_levels`, one launch per nine levels); on a CPU tensor
+in the plain versions beside them, loops over `permute_batch_plain`.  Device
+tensors are Montgomery form; the host-side scalar mirror (`hash_row_ints`,
+`compress_ints`, `verify_path`) works on plain ints for the verifier.
 """
 
 from __future__ import annotations
@@ -20,11 +22,12 @@ import torch
 
 from . import babybear as bb
 from .field_ref import P
-from .poseidon2 import Poseidon2, permute_batch
+from .poseidon2 import Poseidon2, permute_batch_plain
 
 __all__ = [
     "DIGEST_WIDTH", "LEAF_WIDTH", "LEAF_RATE", "WIDTH", "hash_rows",
-    "compress_level", "MerkleTree", "hash_row_ints", "compress_ints",
+    "hash_rows_plain", "tree_levels", "tree_levels_plain", "level_bounds",
+    "MerkleTree", "hash_row_ints", "compress_ints",
     "verify_path",
 ]
 
@@ -36,8 +39,13 @@ LEAF_RATE = 16
 WIDTH = 16
 
 
-def hash_rows(rows: torch.Tensor) -> torch.Tensor:
-    """Hash each row of (N, W) to an (N, 8) digest (Montgomery in/out)."""
+def _no_path(t: torch.Tensor):
+    return ValueError(f"no Poseidon2 path for device {t.device}")
+
+
+def hash_rows_plain(rows: torch.Tensor) -> torch.Tensor:
+    """`hash_rows` with plain torch ops, on any device: one batched
+    permutation per 16 columns."""
     n, w = rows.shape
     state = torch.zeros((n, LEAF_WIDTH), dtype=bb.DTYPE, device=rows.device)
     for i in range(-(-w // LEAF_RATE)):
@@ -46,38 +54,86 @@ def hash_rows(rows: torch.Tensor) -> torch.Tensor:
             chunk = torch.nn.functional.pad(
                 chunk, (0, LEAF_RATE - chunk.shape[1]))
         absorbed = bb.add(state[:, :LEAF_RATE], chunk)
-        state = permute_batch(torch.cat([absorbed, state[:, LEAF_RATE:]],
-                                        dim=1))
+        state = permute_batch_plain(
+            torch.cat([absorbed, state[:, LEAF_RATE:]], dim=1))
     return state[:, :DIGEST_WIDTH]
 
 
-def compress_level(digests: torch.Tensor) -> torch.Tensor:
-    """(2k, 8) sibling digests -> (k, 8) parents (permute(l ‖ r)[:8])."""
-    n = digests.shape[0]
-    if n % 2:
-        raise ValueError("level size must be even")
-    pairs = digests.reshape(n // 2, 2 * DIGEST_WIDTH)
-    return permute_batch(pairs)[:, :DIGEST_WIDTH]
+def hash_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Hash each row of (N, W) to an (N, 8) digest (Montgomery in/out): the
+    fused sponge kernel for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    if rows.is_cuda:
+        from . import cuda_poseidon2
+
+        return cuda_poseidon2.hash_rows(rows)
+    if rows.device.type == "cpu":
+        return hash_rows_plain(rows)
+    raise _no_path(rows)
+
+
+def level_bounds(n_leaves: int) -> list[tuple[int, int]]:
+    """(start, stop) rows of every level in the (2N − 1, 8) tree buffer:
+    the N leaves first, then N/2 parents, …, the root in the last row."""
+    bounds, start, size = [], 0, n_leaves
+    while size >= 1:
+        bounds.append((start, start + size))
+        start += size
+        size //= 2
+    return bounds
+
+
+def _check_leaves(leaves: torch.Tensor) -> int:
+    n = leaves.shape[0]
+    if n < 1 or n & (n - 1) or leaves.shape[1:] != (DIGEST_WIDTH,):
+        raise ValueError("leaves must be (N, 8) for a power of two N")
+    return n
+
+
+def tree_levels_plain(leaves: torch.Tensor) -> torch.Tensor:
+    """`tree_levels` with plain torch ops, on any device: one batched
+    permutation per level."""
+    _check_leaves(leaves)
+    levels = [leaves]
+    while levels[-1].shape[0] > 1:
+        pairs = levels[-1].reshape(-1, 2 * DIGEST_WIDTH)
+        levels.append(permute_batch_plain(pairs)[:, :DIGEST_WIDTH])
+    return torch.cat(levels, dim=0)
+
+
+def tree_levels(leaves: torch.Tensor) -> torch.Tensor:
+    """(N, 8) leaf digests -> the (2N − 1, 8) buffer of every tree level
+    (see `level_bounds`), each node permute(left ‖ right)[:8]: the fused
+    tree kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if leaves.is_cuda:
+        from . import cuda_poseidon2
+
+        n = _check_leaves(leaves)
+        buf = torch.empty((2 * n - 1, DIGEST_WIDTH), dtype=bb.DTYPE,
+                          device=leaves.device)
+        buf[:n] = leaves
+        return cuda_poseidon2.merkle_levels(buf)
+    if leaves.device.type == "cpu":
+        return tree_levels_plain(leaves)
+    raise _no_path(leaves)
 
 
 class MerkleTree:
     """Bottom-up tree over row digests; keeps every level for openings.
 
     level[0] = leaf digests (natural row order), level[k] halves
-    level[k-1] by compressing adjacent pairs (2i, 2i+1).  The finished
-    levels are pulled to the host (plain form) once, so root and open()
-    cost no device round trips."""
+    level[k-1] by compressing adjacent pairs (2i, 2i+1).  All levels are
+    built in one buffer and pulled to the host (plain form) in one copy,
+    so root and open() cost no device round trips."""
 
     def __init__(self, rows: torch.Tensor):
         n = rows.shape[0]
         if n & (n - 1):
             raise ValueError("leaf count must be a power of two")
-        level = hash_rows(rows)
-        levels = [level]
-        while level.shape[0] > 1:
-            level = compress_level(level)
-            levels.append(level)
-        self.levels_np = [bb.np_from_mont(bb.to_numpy(lv)) for lv in levels]
+        buf = tree_levels(hash_rows(rows))
+        # every value is < 2^31: half the bytes cross to the host as int32
+        nodes = bb.np_from_mont(bb.to_numpy(buf.to(torch.int32)))
+        self.levels_np = [nodes[a:b] for a, b in level_bounds(n)]
 
     @property
     def root(self) -> np.ndarray:

@@ -8,9 +8,11 @@ lowering, host tables), warm with per-stage seconds, and warm under
 torch.profiler.  Prints one JSON line: the card, the cold and warm wall
 seconds, the warm stages, the profiled prove's wall and summed device
 seconds (their ratio is the device-busy share: the port runs on one
-stream, so device activities do not overlap), the Poseidon2 kernel's
-device time beside the least time the card could take for the same
-permutations, device time by kind of activity, and the top activities.
+stream, so device activities do not overlap), device ms and launches of
+each Poseidon2 entry point (permute, hash_rows, merkle_levels) and their
+sum beside the least time the card could take for the same permutations,
+device time by kind of activity (torch elementwise kernels, `cat`, copies,
+…), and the top activities.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def _poseidon2_work(n_rows: int, width: int, perm_width: int, config
 
 
 #: device activity kinds, by a substring of the kernel name (first match)
-KINDS = (("k1", "poseidon2_kernel"), ("copy", "Memcpy"), ("copy", "Memset"),
+KINDS = (("k1", "poseidon2_"), ("copy", "Memcpy"), ("copy", "Memset"),
          ("int8_gemm", "gemm"), ("gather_scatter", "index"),
          ("cat", "CatArray"), ("reduce", "reduce_kernel"))
 
@@ -63,6 +65,22 @@ def _by_kind(rows) -> dict:
         agg["ms"] += us / 1e3
         agg["count"] += count
     return out
+
+
+#: Poseidon2 entry point by a substring of its kernel's name
+ENTRY_POINTS = (("permute", "poseidon2_permute_kernel"),
+                ("hash_rows", "poseidon2_hash_rows_kernel"),
+                ("merkle_levels", "poseidon2_merkle_kernel"))
+
+
+def _by_entry_point(rows, launches: dict) -> dict:
+    """Device ms and profiled activities per Poseidon2 entry point, beside
+    the launches its wrapper counted."""
+    return {name: {
+        "ms": sum(us for n, _, us in rows if sub in n) / 1e3,
+        "activities": sum(c for n, c, _ in rows if sub in n),
+        "launches": launches[name],
+    } for name, sub in ENTRY_POINTS}
 
 
 def _device_rows(prof) -> list[tuple[str, int, float]]:
@@ -102,14 +120,14 @@ def main() -> int:
     cold_s = prove()
     stages: dict = {}
     warm_s = prove(stages)
-    launches_before = cuda_poseidon2.launches
+    cuda_poseidon2.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         profiled_s = prove()
     rows = _device_rows(prof)
     device_us = sum(r[2] for r in rows)
-    k1_us = sum(r[2] for r in rows if "poseidon2_kernel" in r[0])
+    k1 = _by_entry_point(rows, cuda_poseidon2.launches)
     states = _poseidon2_work(inst.trace.shape[0], inst.air.width,
                              inst.air.perm_width, DEFAULT_CONFIG)
     print(json.dumps({
@@ -122,8 +140,9 @@ def main() -> int:
         "device_s": device_us / 1e6,
         "device_busy_share": device_us / 1e6 / profiled_s,
         "device_by_kind": _by_kind(rows),
-        "k1_launches": cuda_poseidon2.launches - launches_before,
-        "k1_device_s": k1_us / 1e6,
+        "k1_entry_points": k1,
+        "k1_launches": sum(v["launches"] for v in k1.values()),
+        "k1_device_s": sum(v["ms"] for v in k1.values()) / 1e3,
         "k1_states": states,
         "k1_bound": cuda_poseidon2.bound(states, sms, clock_mhz),
         "top_device": [{"name": n[:90], "count": c, "ms": us / 1e3}
