@@ -23,8 +23,22 @@ without printing a result:
      bytes must be identical; then the grinding path (the same machine
      with 8 proof-of-work bits), the one caller of the permute entry
      point, with the counters reset before and read after;
-  6. one JSON line describing each kernel;
-  7. last line: {"ok": true, "device": {...}}.
+  6. the session's kernel shapes: build the twelve chips of the recorded
+     TLS 1.2 ECDHE(P-256)-RSA-AES128-GCM-SHA256 session
+     (zktls_tpu_torch/data/, build_chip_instances on the decoded
+     witness) and hold hash_rows against its plain version at each chip's
+     LDE shape (4 × height by width) and its perm matrix's, and
+     merkle_levels at the session's largest tree;
+  7. the session path: prove the twelve-chip machine bound to its journal
+     on the card, cold and warm (the launch counters reset just before the
+     warm prove and read just after); verify it with
+     StarkGuestProver().verify; reject the proof against a journal with a
+     changed filtered byte; require the proof's SHA-256 to equal the
+     digest of the port's CPU proof of the same session
+     (SESSION_PROOF_SHA256, made by scripts/session_proof_cpu.py, whose
+     bytes the JAX package's verifier accepts);
+  8. one JSON line describing each kernel;
+  9. last line: {"ok": true, "device": {...}}.
 
 Needs one card, nvcc (/usr/local/cuda) and no network.
 """
@@ -32,6 +46,7 @@ Needs one card, nvcc (/usr/local/cuda) and no network.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -43,6 +58,11 @@ SEED = 20261016
 #: main-path input: 8 messages × 3,000 bytes = 384 compressions = 24,576
 #: rows, padded to 32,768
 MAIN_MESSAGES, MAIN_BYTES = 8, 3000
+#: SHA-256 of the port's DEFAULT_CONFIG proof of the recorded session on the
+#: CPU (python scripts/session_proof_cpu.py); the card must give the same
+#: bytes
+SESSION_PROOF_SHA256 = (
+    "b6516f414f18c407eace9e7ca9867bd6f672b14d16e8d7ada5b345411cb26b91")
 
 
 def _nvidia_smi(fields: str) -> str:
@@ -97,8 +117,12 @@ def main() -> int:
         prove_machine,
         verify_machine,
     )
+    from zktls_tpu_torch.provers.stark import (
+        StarkGuestProver,
+        build_chip_instances,
+    )
     from zktls_tpu_torch.stark.verifier import VerificationError
-    from zktls_tpu_torch.workload import sha_machine
+    from zktls_tpu_torch.workload import load_session, sha_machine
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -274,7 +298,95 @@ def main() -> int:
           f"launches {launches['permute']} (witness {ground.pow_witness}); "
           f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 6. kernels
+    # 6. the session's shapes
+    t0 = time.perf_counter()
+    session = load_session()
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chips = build_chip_instances(session)
+    build_s = time.perf_counter() - t0
+    journal = session.journal
+    print(f"session: witness decoded in {decode_s:.2f} s, "
+          f"build_chip_instances {build_s:.2f} s: " + ", ".join(
+              f"{c.air.name} {c.trace.shape[0]}x{c.trace.shape[1]}"
+              for c in chips))
+    _require(len(chips) == 12, f"the session has {len(chips)} chips, not 12")
+    shapes = []
+    for c in chips:
+        lde_rows = c.trace.shape[0] << DEFAULT_CONFIG.log_blowup
+        shapes += [(c.air.name, "trace", lde_rows, c.air.width),
+                   (c.air.name, "perm", lde_rows, c.air.perm_width)]
+    for name, what, n, w in shapes:
+        rows = rand_field(n, w)
+        err = abs_err(mk.hash_rows(rows), mk.hash_rows_plain(rows))
+        errs["hash_rows"] = max(errs["hash_rows"], err)
+        _require(err == 0, f"hash_rows != plain at ({n}, {w})")
+        print(f"session kernel: hash_rows == plain at ({n}, {w}), {name} "
+              f"{what} LDE, max abs err {err}")
+    del rows
+    n_tree = max(n for _, _, n, _ in shapes)
+    leaves = rand_field(n_tree, mk.DIGEST_WIDTH)
+    err = abs_err(mk.tree_levels(leaves), mk.tree_levels_plain(leaves))
+    errs["merkle_levels"] = max(errs["merkle_levels"], err)
+    _require(err == 0, f"merkle_levels != plain at N={n_tree}")
+    print(f"session kernel: merkle_levels == plain, every level, at "
+          f"N={n_tree} (the session's largest tree), max abs err {err}")
+
+    # 7. the session path, through K1
+    t0 = time.perf_counter()
+    prove_machine(chips, journal, DEFAULT_CONFIG, device=dev)
+    torch.cuda.synchronize(dev)
+    cold_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings = {}
+    k1.reset_launches()
+    p2.plain_calls = 0
+    t0 = time.perf_counter()
+    proof = prove_machine(chips, journal, DEFAULT_CONFIG, device=dev,
+                          timings=timings)
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    session_launches, plain_calls = dict(k1.launches), p2.plain_calls
+    for name in ("hash_rows", "merkle_levels"):
+        _require(session_launches[name] > 0,
+                 f"the session path launched {name} no time")
+    _require(plain_calls == 0, "the session path ran the plain Poseidon2")
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    blob = proof.to_bytes()
+    digest = hashlib.sha256(blob).hexdigest()
+    print(f"session: prove cold {cold_s:.2f} s, warm {warm_s:.2f} s; warm "
+          "stages " + ", ".join(f"{k} {timings[k]:.3f}" for k in STAGES)
+          + f"; proof {len(blob)} bytes, sha256 {digest}; K1 launches per "
+          f"prove {session_launches}, total "
+          f"{sum(session_launches.values())}, plain calls {plain_calls}; "
+          f"peak device memory {peak_gib:.2f} GiB")
+    _require(digest == SESSION_PROOF_SHA256,
+             "the card's session proof differs from the CPU proof's digest")
+    t0 = time.perf_counter()
+    _require(StarkGuestProver().verify(journal, blob),
+             "StarkGuestProver rejected the session proof")
+    verify_s = time.perf_counter() - t0
+    # flip the first filtered byte (the ABI's bytes[] at head word 13)
+    off = int.from_bytes(journal[13 * 32 : 14 * 32], "big")
+    rel = int.from_bytes(journal[off + 32 : off + 64], "big")
+    pos = off + 32 + rel + 32
+    bad = journal[:pos] + bytes([journal[pos] ^ 1]) + journal[pos + 1 :]
+    t0 = time.perf_counter()
+    try:
+        StarkGuestProver().verify(bad, blob)
+    except VerificationError as e:
+        print(f"session: StarkGuestProver.verify {verify_s:.2f} s ok; proof "
+              f"== CPU proof digest; journal with filtered byte {pos} "
+              f"changed rejected in {time.perf_counter() - t0:.2f} s ({e}); "
+              f"total {time.perf_counter() - t_start:.1f} s")
+    else:
+        raise RuntimeError("the session proof verified against a tampered "
+                           "journal")
+    launches["hash_rows"] = session_launches["hash_rows"]
+    launches["merkle_levels"] = session_launches["merkle_levels"]
+
+    # 8. kernels (launches: the session path's; permute: the grinding
+    # path's, its one caller)
     print(json.dumps({"kernels": [{
         "name": f"poseidon2_{name}",
         "route": "cuda",
@@ -288,7 +400,7 @@ def main() -> int:
         "bound_by": b["bound_by"],
         "library_ms": None,
     } for name, (_, ms, plain_ms, b) in timed.items()]}))
-    # 7. result
+    # 9. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

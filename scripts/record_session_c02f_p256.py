@@ -1,0 +1,172 @@
+"""Record the TLS session that the PyTorch port proves, and derive its
+witness file.
+
+A loopback TLS 1.2 session against a local OpenSSL server (Python's `ssl`)
+with the suite ECDHE-RSA-AES128-GCM-SHA256 (0xC02F), the server limited to
+the P-256 group, a self-signed 2048-bit RSA certificate and a response body
+of 512 seeded ASCII bytes (a JSON answer, one field of which the request's
+template filters).  The recording is made by the JAX package's recorder
+(`zktls_tpu.host.input_builder.TLSInputBuilder`), so this script needs the
+`cryptography` package and is run once, off the card machine:
+
+    JAX_PLATFORMS=cpu python scripts/record_session_c02f_p256.py
+    JAX_PLATFORMS=cpu python scripts/record_session_c02f_p256.py --witness-only
+
+It writes `zktls_tpu_torch/data/session_c02f_p256.guest_input.cbor` (the
+recorded GuestInput) and `.witness.cbor` (the replayed GuestOutput's fields
+that the port's `build_chip_instances` and journal helpers read; see
+`zktls_tpu_torch/convert.py`).  `--witness-only` re-derives the witness
+from the committed GuestInput: the replay is deterministic, so the bytes
+come out the same.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import pathlib
+import socket
+import ssl
+import sys
+import tempfile
+import threading
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+DATA = ROOT / "zktls_tpu_torch" / "data"
+GUEST_INPUT = DATA / "session_c02f_p256.guest_input.cbor"
+WITNESS = DATA / "session_c02f_p256.witness.cbor"
+BODY_LEN = 512
+PRICE_PREFIX = b'"price":"'
+PRICE_LEN = 10
+SEED = 0
+
+
+def response_bytes() -> bytes:
+    """An HTTP response whose body is 512 seeded ASCII bytes of JSON."""
+    rng = np.random.default_rng(SEED)
+    price = "".join(str(d) for d in rng.integers(0, 10, PRICE_LEN))
+    head = (b'{"symbol":"ETHUSD",' + PRICE_PREFIX + price.encode()
+            + b'","data":"')
+    tail = b'"}'
+    alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789",
+                             dtype=np.uint8)
+    pad = alphabet[rng.integers(0, len(alphabet),
+                                BODY_LEN - len(head) - len(tail))].tobytes()
+    body = head + pad + tail
+    return (b"HTTP/1.1 200 OK\r\nContent-Type: application/json\r\n"
+            b"Content-Length: " + str(BODY_LEN).encode() + b"\r\n\r\n" + body)
+
+
+def _self_signed(tmp: pathlib.Path) -> tuple[pathlib.Path, pathlib.Path]:
+    from cryptography import x509
+    from cryptography.hazmat.primitives import hashes, serialization
+    from cryptography.hazmat.primitives.asymmetric import rsa
+    from cryptography.x509.oid import NameOID
+
+    key = rsa.generate_private_key(public_exponent=65537, key_size=2048)
+    name = x509.Name([x509.NameAttribute(NameOID.COMMON_NAME, "localhost")])
+    now = datetime.datetime.now(datetime.timezone.utc)
+    cert = (x509.CertificateBuilder().subject_name(name).issuer_name(name)
+            .public_key(key.public_key())
+            .serial_number(x509.random_serial_number())
+            .not_valid_before(now - datetime.timedelta(days=1))
+            .not_valid_after(now + datetime.timedelta(days=3650))
+            .add_extension(x509.SubjectAlternativeName(
+                [x509.DNSName("localhost")]), critical=False)
+            .sign(key, hashes.SHA256()))
+    certfile, keyfile = tmp / "cert.pem", tmp / "key.pem"
+    certfile.write_bytes(cert.public_bytes(serialization.Encoding.PEM))
+    keyfile.write_bytes(key.private_bytes(
+        serialization.Encoding.PEM,
+        serialization.PrivateFormat.TraditionalOpenSSL,
+        serialization.NoEncryption()))
+    return certfile, keyfile
+
+
+def record() -> bytes:
+    """Record one session on the loopback; returns the GuestInput CBOR."""
+    from zktls_tpu.core.types import PrefixTemplate, Request, RequestInfo
+    from zktls_tpu.host.input_builder import TLSInputBuilder
+
+    response = response_bytes()
+    with tempfile.TemporaryDirectory() as tmp:
+        certfile, keyfile = _self_signed(pathlib.Path(tmp))
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.minimum_version = ssl.TLSVersion.TLSv1_2
+        ctx.maximum_version = ssl.TLSVersion.TLSv1_2
+        ctx.set_ciphers("ECDHE-RSA-AES128-GCM-SHA256")
+        ctx.set_ecdh_curve("prime256v1")
+        ctx.load_cert_chain(certfile, keyfile)
+        srv = socket.socket()
+        srv.bind(("127.0.0.1", 0))
+        srv.listen(1)
+        port = srv.getsockname()[1]
+
+        def serve():
+            conn, _ = srv.accept()
+            try:
+                tls = ctx.wrap_socket(conn, server_side=True)
+                while b"\r\n\r\n" not in tls.recv(4096):
+                    pass
+                tls.sendall(response)
+                tls.unwrap()
+            except (OSError, ssl.SSLError):
+                pass  # the client closes without a close_notify
+            finally:
+                conn.close()
+
+        t = threading.Thread(target=serve, daemon=True)
+        t.start()
+        req = Request(
+            version=1,
+            request_info=RequestInfo(
+                request=b"GET /v1/price?symbol=ETHUSD HTTP/1.1\r\n"
+                        b"Host: localhost\r\nConnection: close\r\n\r\n",
+                remote_addr=f"127.0.0.1:{port}", server_name="localhost"),
+            response_template=[PrefixTemplate(prefix=PRICE_PREFIX,
+                                              length=PRICE_LEN)])
+        gi = TLSInputBuilder().build_input(req)
+        t.join(timeout=10)
+        srv.close()
+    return gi.to_cbor()
+
+
+def witness(gi_bytes: bytes) -> bytes:
+    """Replay the GuestInput with the JAX package and encode the port's
+    witness of it."""
+    from zktls_tpu.core.types import GuestInput
+    from zktls_tpu.guest.program import run_guest
+    from zktls_tpu_torch.convert import (
+        encode_witness,
+        guest_output_from_reference,
+    )
+
+    out = run_guest(GuestInput.from_cbor(gi_bytes),
+                    require_trust_anchor=False)
+    return encode_witness(guest_output_from_reference(out))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--witness-only", action="store_true",
+                    help="re-derive the witness from the committed "
+                         "GuestInput instead of recording anew")
+    args = ap.parse_args()
+    DATA.mkdir(exist_ok=True)
+    if args.witness_only:
+        gi_bytes = GUEST_INPUT.read_bytes()
+    else:
+        gi_bytes = record()
+        GUEST_INPUT.write_bytes(gi_bytes)
+    wit = witness(gi_bytes)
+    WITNESS.write_bytes(wit)
+    print(f"{GUEST_INPUT.name}: {len(gi_bytes)} bytes; "
+          f"{WITNESS.name}: {len(wit)} bytes")
+
+
+if __name__ == "__main__":
+    main()

@@ -12,6 +12,8 @@ from zktls_tpu.ops.field_ref import P, Fp4
 from zktls_tpu_torch.ops import babybear as tbb
 from zktls_tpu_torch.ops import ext as tex
 
+from .torch_threads import torch_threads_per_worker  # noqa: F401
+
 RNG = np.random.default_rng(1101)
 EDGE = np.array([0, 1, 2, P - 2, P - 1], dtype=np.uint32)
 

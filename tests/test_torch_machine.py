@@ -32,6 +32,8 @@ from zktls_tpu_torch.stark.chips.sha256 import sha256_trace
 from zktls_tpu_torch.stark.config import StarkConfig
 from zktls_tpu_torch.stark.verifier import VerificationError
 
+from .torch_threads import torch_threads_per_worker  # noqa: F401
+
 BINDING = b"zktls-tpu-torch machine test"
 CFG = dict(log_blowup=2, num_queries=8, pow_bits=0, fri_final_size=16)
 

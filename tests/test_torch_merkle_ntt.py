@@ -14,6 +14,8 @@ from zktls_tpu_torch.ops import cuda_poseidon2
 from zktls_tpu_torch.ops import merkle as tmk
 from zktls_tpu_torch.ops import ntt as tntt
 
+from .torch_threads import torch_threads_per_worker  # noqa: F401
+
 RNG = np.random.default_rng(3303)
 
 

@@ -17,6 +17,8 @@ from zktls_tpu_torch.ops import babybear as tbb
 from zktls_tpu_torch.ops import cuda_poseidon2
 from zktls_tpu_torch.ops import poseidon2 as tp2
 
+from .torch_threads import torch_threads_per_worker  # noqa: F401
+
 RNG = np.random.default_rng(2202)
 
 

@@ -7,17 +7,26 @@ an obvious counterpart:
   ops/       Baby-Bear field, quartic extension, Poseidon2 (plain torch
              version + the hand-written Hopper kernel in csrc/), Merkle
              trees, NTT/LDE
-  core/      the CBOR codec the proof bytes rest on
+  core/      the CBOR codec the proof bytes rest on, the stream tape
   stark/     config, challenger, AIR builders, LogUp bus helpers, the
              constraint-VM lowering, prover/verifier helpers and the
              machine prover/verifier
-  stark/chips/sha256.py, guest/crypto/sha256.py
-             the SHA-256 compression chip and its event recorder
-  convert.py carries chip instances and SHA-256 events across from the
-             reference's objects (duck-typed)
+  stark/chips/, models/
+             the chip AIRs of a TLS 1.2 ECDHE(P-256)-RSA-AES128-GCM-SHA256
+             session (SHA-256, AES-128, GHASH, GCM control and data, stream
+             parser, xor table, Keccak, EC schedule, key schedule, ModMul)
+             and their trace builders
+  guest/     the crypto helpers the chips use, journal decoding
+  provers/stark.py
+             build_chip_instances, journal_airs, journal_public_messages,
+             StarkGuestProver.verify
+  data/      a recorded session and its witness (the guest replay is not
+             ported yet)
+  convert.py carries the reference's objects across (duck-typed) and
+             encodes/decodes the session witness
   workload.py, profile_prove.py
-             the seeded Sha256Air machine chip_smoke.py drives, and a
-             device-time breakdown of its prove
+             the machines chip_smoke.py drives (a seeded Sha256Air machine,
+             the recorded session), and a device-time breakdown of a prove
 
 `stark.machine.prove_machine` runs on the CUDA card unless the caller
 passes device="cpu"; without a card and without an explicit CPU device it

@@ -1,0 +1,53 @@
+"""Guest-witness → AES-128 chip bridge (SURVEY.md §3.4 record-decryption
+workload).  Builds the machine ChipInstance proving every AES block
+encryption the guest's GCM decryptions performed — H = E_K(0), the tag
+mask E_K(J0), and the CTR keystream — each published on the bus as
+(AES_ENC, eid, key, input, output) for the GCM control chip.
+
+Port copy of zktls_tpu.models.aes128_chip (same names and values; host code
+in numpy)."""
+
+from __future__ import annotations
+
+from ..guest.crypto.gcm import GCMEvent
+from ..stark.chips.aes128 import Aes128Air, aes128_trace
+from ..stark.machine import ChipInstance
+
+__all__ = ["aes128_instance", "aes128_air"]
+
+_AIR = Aes128Air()
+
+
+def aes128_air() -> Aes128Air:
+    return _AIR
+
+
+def aes_event_blocks(events: list[GCMEvent]) -> list[tuple[int, bytes, bytes]]:
+    """Every (eid, key, input_block) encryption of the recorded events."""
+    blocks = []
+    for eid, ev in enumerate(events):
+        blocks.append((eid, ev.key, b"\x00" * 16))
+        blocks.append((eid, ev.key, ev.nonce + b"\x00\x00\x00\x01"))
+        for cb in ev.counter_blocks:
+            blocks.append((eid, ev.key, cb))
+    return blocks
+
+
+def aes128_instance(events: list[GCMEvent]) -> ChipInstance:
+    trace, publics = aes128_trace(aes_event_blocks(events))
+    return ChipInstance(air=_AIR, trace=trace, publics=publics)
+
+
+def aes_instances(events: list[GCMEvent]) -> list[ChipInstance]:
+    """Route each GCM event to the AES chip matching its key size
+    (only AES-128 is ported: SHA-384 suites' 32-byte keys raise); event ids
+    stay the global enumeration, so the control chip's receives match
+    regardless of which chip served the block."""
+    blocks = aes_event_blocks(events)
+    if any(len(b[1]) != 16 for b in blocks):
+        raise NotImplementedError(
+            "AES-256 record keys need Aes256Air, which is not ported")
+    if not blocks:
+        return []
+    trace, publics = aes128_trace(blocks)
+    return [ChipInstance(air=_AIR, trace=trace, publics=publics)]

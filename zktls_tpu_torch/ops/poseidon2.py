@@ -98,32 +98,23 @@ def get_params(width: int) -> Poseidon2Params:
 # ---------------------------------------------------------------------------
 
 
-def _sbox(x: int) -> int:
-    x2 = x * x % P
-    x4 = x2 * x2 % P
-    return x4 * x2 % P * x % P
-
-
-def _m4_block(x: list[int]) -> list[int]:
-    return [
-        (2 * x[0] + 3 * x[1] + x[2] + x[3]) % P,
-        (x[0] + 2 * x[1] + 3 * x[2] + x[3]) % P,
-        (x[0] + x[1] + 2 * x[2] + 3 * x[3]) % P,
-        (3 * x[0] + x[1] + x[2] + 2 * x[3]) % P,
-    ]
-
-
-def _external_matrix(state: list[int]) -> list[int]:
-    t = len(state)
-    blocks = [_m4_block(state[i : i + 4]) for i in range(0, t, 4)]
-    sums = [sum(b[j] for b in blocks) % P for j in range(4)]
-    return [
-        (blocks[i // 4][i % 4] + sums[i % 4]) % P for i in range(t)
-    ]
+def _external_matrix(s: list[int]) -> list[int]:
+    """M_E·s: M4 on every 4-lane block, then each lane adds the sum of its
+    position across blocks.  The map is linear, so the lanes are reduced
+    once, at the end (inputs may be any non-negative ints)."""
+    y: list[int] = []
+    for i in range(0, len(s), 4):
+        x0, x1, x2, x3 = s[i : i + 4]
+        a = x0 + x1 + x2 + x3
+        y += (a + x0 + 2 * x1, a + x1 + 2 * x2, a + x2 + 2 * x3,
+              a + x3 + 2 * x0)
+    t = [sum(y[j::4]) for j in range(4)]
+    return [(v + t[i & 3]) % P for i, v in enumerate(y)]
 
 
 class Poseidon2:
-    """Host-side scalar Poseidon2 over plain-form ints (pure Python)."""
+    """Host-side scalar Poseidon2 over plain-form ints (pure Python; the
+    S-box is `pow(x, 7, P)`)."""
 
     def __init__(self, width: int = 16):
         self.params = get_params(width)
@@ -132,19 +123,16 @@ class Poseidon2:
         p = self.params
         if len(state) != p.width:
             raise ValueError(f"state width must be {p.width}")
-        s = [x % P for x in state]
         half = p.rf // 2
-        s = _external_matrix(s)  # initial linear layer
-        for r in range(half):
-            s = [_sbox((x + c) % P) for x, c in zip(s, p.external_rc[r])]
-            s = _external_matrix(s)
-        for r in range(p.rp):
-            s[0] = _sbox((s[0] + p.internal_rc[r]) % P)
-            tot = sum(s) % P
+        s = _external_matrix(state)  # initial linear layer
+        for rc in p.external_rc[:half]:
+            s = _external_matrix([pow(x + c, 7, P) for x, c in zip(s, rc)])
+        for c in p.internal_rc:
+            s[0] = pow(s[0] + c, 7, P)
+            tot = sum(s)
             s = [(tot + d * x) % P for x, d in zip(s, p.diag)]
-        for r in range(half, p.rf):
-            s = [_sbox((x + c) % P) for x, c in zip(s, p.external_rc[r])]
-            s = _external_matrix(s)
+        for rc in p.external_rc[half:]:
+            s = _external_matrix([pow(x + c, 7, P) for x, c in zip(s, rc)])
         return s
 
 

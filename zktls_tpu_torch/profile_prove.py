@@ -1,11 +1,12 @@
 """Where the time of one prove goes, on the card.
 
-    python3 -m zktls_tpu_torch.profile_prove
+    python3 -m zktls_tpu_torch.profile_prove [--workload sha|session]
 
-Proves the 32768 × 639 Sha256Air machine (the chip_smoke.py main path,
-DEFAULT_CONFIG) three times: cold (first use: kernel build, constraint
-lowering, host tables), warm with per-stage seconds, and warm under
-torch.profiler.  Prints one JSON line: the card, the cold and warm wall
+Proves a machine at DEFAULT_CONFIG three times — `sha` (the default): the
+32768 × 639 Sha256Air machine of chip_smoke.py's first path; `session`: the
+twelve-chip machine of the recorded TLS session in data/, bound to its
+journal — cold (first use: kernel build, constraint lowering, host tables),
+warm with per-stage seconds, and warm under torch.profiler.  Prints one JSON line: the card, the cold and warm wall
 seconds, the warm stages, the profiled prove's wall and summed device
 seconds (their ratio is the device-busy share: the port runs on one
 stream, so device activities do not overlap), device ms and launches of
@@ -17,6 +18,7 @@ device time by kind of activity (torch elementwise kernels, `cat`, copies,
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -28,20 +30,24 @@ from .ops import cuda_poseidon2
 from .ops.merkle import LEAF_RATE
 from .stark.config import DEFAULT_CONFIG
 from .stark.machine import STAGES, prove_machine
-from .workload import sha_machine
+from .workload import session_machine, sha_machine
 
 SEED = 20261016
 
 
-def _poseidon2_work(n_rows: int, width: int, perm_width: int, config
+def _poseidon2_work(chips: list[tuple[int, int, int]], config
                     ) -> dict[int, int]:
-    """States per Poseidon2 width that one prove of a one-chip machine
-    hashes: each committed matrix (trace, perm, quotient, every FRI layer's
-    pair rows) costs ceil(w/16) width-24 leaf absorbs per row and
-    rows − 1 width-16 compressions."""
-    big = n_rows << config.log_blowup
-    mats = [(big, width), (big, perm_width), (big, 4 * config.blowup)]
-    size = big
+    """States per Poseidon2 width that one prove of a machine of `chips`
+    ((rows, width, perm width) each) hashes: each committed matrix (trace,
+    perm, quotient, every FRI layer's pair rows) costs ceil(w/16) width-24
+    leaf absorbs per row and rows − 1 width-16 compressions."""
+    mats = []
+    for n_rows, width, perm_width in chips:
+        big = n_rows << config.log_blowup
+        mats += [(big, width), (big, 4 * config.blowup)]
+        if perm_width:
+            mats.append((big, perm_width))
+    size = max(n for n, _, _ in chips) << config.log_blowup
     while size > config.fri_final_size:
         mats.append((size // 2, 8))
         size //= 2
@@ -97,6 +103,9 @@ def _device_rows(prof) -> list[tuple[str, int, float]]:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workload", choices=("sha", "session"), default="sha")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
         return 2
@@ -107,12 +116,15 @@ def main() -> int:
         check=True).stdout.strip().rsplit(",", 1)
     clock_mhz = float(clock.split()[0])
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    inst, _ = sha_machine(8, 3000, SEED)
-    binding = b"chip-smoke sha256 machine"
+    if args.workload == "sha":
+        inst, _ = sha_machine(8, 3000, SEED)
+        chips, binding = [inst], b"chip-smoke sha256 machine"
+    else:
+        chips, binding = session_machine()
 
     def prove(timings=None):
         t0 = time.perf_counter()
-        prove_machine([inst], binding, DEFAULT_CONFIG, device=dev,
+        prove_machine(chips, binding, DEFAULT_CONFIG, device=dev,
                       timings=timings)
         torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
@@ -128,11 +140,13 @@ def main() -> int:
     rows = _device_rows(prof)
     device_us = sum(r[2] for r in rows)
     k1 = _by_entry_point(rows, cuda_poseidon2.launches)
-    states = _poseidon2_work(inst.trace.shape[0], inst.air.width,
-                             inst.air.perm_width, DEFAULT_CONFIG)
+    states = _poseidon2_work(
+        [(c.trace.shape[0], c.air.width, c.air.perm_width) for c in chips],
+        DEFAULT_CONFIG)
     print(json.dumps({
         "card": card,
-        "trace": list(inst.trace.shape),
+        "workload": args.workload,
+        "traces": {c.air.name: list(c.trace.shape) for c in chips},
         "cold_prove_s": cold_s,
         "warm_prove_s": warm_s,
         "warm_stages_s": {k: stages[k] for k in STAGES},

@@ -1,0 +1,313 @@
+"""STARK prover adapter: generates chip traces from a guest witness and
+proves them as ONE machine proof; verifies a proof against its journal.
+
+Port copy of the machine half of zktls_tpu.provers.stark (same names and
+values).  The guest replay that produces the witness (`run_guest`) is not
+ported yet, so `build_chip_instances` takes a `convert.GuestOutput` (a
+recorded session's witness, `convert.decode_witness`) and
+`StarkGuestProver` has `verify` but no `prove`.  The chips of a TLS 1.2
+ECDHE(P-256)-RSA-AES128-GCM-SHA256 session are ported; a session that
+needs the SHA-512 chip or the ChaCha20 chips raises NotImplementedError.
+
+What `verify(journal, proof)` checks:
+  * the proof transcript is bound to THIS journal (binding bytes);
+  * the SHA-256 chip published the journal's own digest and the journal's
+    stream_sha256 field as IV-rooted chained digests;
+  * every journal GCM record header (nonce, tag, n_blocks) is consumed by
+    the control chip, whose key/H/mask/tag/counter wiring to the AES and
+    GHASH chips is bus-enforced; every filtered response byte is matched
+    by the data chip against decrypted plaintext; the Keccak chip publishes
+    the journal's request and response hashes;
+  * every chip's AIR constraints and the global bus balance hold.
+"""
+
+from __future__ import annotations
+
+from ..stark.config import DEFAULT_CONFIG, StarkConfig
+from ..stark.machine import ChipInstance, MachineProof, verify_machine
+
+__all__ = ["StarkGuestProver", "build_chip_instances",
+           "journal_public_messages", "journal_airs"]
+
+
+def _filtered_multiplicities(journal: bytes, obj: int = 1) -> list[tuple]:
+    """(obj, pos, count) multiplicities of the verifier's filtered-byte
+    sends implied by a journal's filtered ranges."""
+    from ..guest.journal import decode_journal
+
+    j = decode_journal(journal)
+    counts: dict[tuple, int] = {}
+    for begin, length in zip(j["filtered_begins"], j["filtered_lengths"]):
+        for k in range(length):
+            key = (obj, begin + k)
+            counts[key] = counts.get(key, 0) + 1
+    return [(o, pos, cnt) for (o, pos), cnt in counts.items()]
+
+
+def _derive_ks_sessions(out, obj: int = 1, ec_rid: int | None = 2,
+                        sid_base: int = 0x1000) -> list:
+    """Key-schedule witness for a session, when its suite is covered
+    (TLS 1.2, AES-128-GCM → SHA-256 PRF).  The GCM control chip's header
+    rows consume BUS_SESSION_KEY mandatorily for exactly these records,
+    so eligibility here must match the chip's g_kr gate."""
+    from ..stark.chips.ec import EC_CURVES
+    from ..stark.chips.keyschedule import KsSession
+
+    rep = out.replay
+    suite = rep.cipher_suite
+    if (rep.version != 0x0303 or getattr(suite, "aead", "") != "aes-gcm"
+            or getattr(suite, "key_len", 0) != 16):
+        return []
+    n_client = sum(1 for m in (out.gcm_metas or [])
+                   if getattr(m, "dir", "c") == "c")
+    n_server = len(out.gcm_metas or []) - n_client
+    kw = dict(n_client_records=n_client, n_server_records=n_server,
+              obj=obj, sid_base=sid_base)
+    ecd = getattr(rep, "ecdhe_weierstrass", None)
+    if ecd is not None and ecd[0] in EC_CURVES and ec_rid is not None:
+        curve, scalar, spoint = ecd
+        pt = curve.mul(scalar, spoint)
+        kw.update(ec_rid=ec_rid,
+                  ec_nbits=(scalar % curve.n).bit_length(), ec_point=pt)
+    # else: free-premaster intake (x25519 / P-384 — documented gap)
+    return [KsSession(rep.premaster_secret, rep.master_secret,
+                      b"extended master secret" + rep.session_hash,
+                      b"key expansion" + rep.server_random
+                      + rep.client_random, **kw)]
+
+
+def build_chip_instances(out) -> list[ChipInstance]:
+    """The machine chip set for one session's guest execution (a
+    GuestOutput; the reference's batch merge, which presets the chip
+    inputs of several sessions, is not ported)."""
+    from ..models.aes128_chip import aes_instances
+    from ..models.ghash_chip import gcm_control_instance, ghash_instance
+    from ..models.modmul_chip import modmul_instances
+    from ..models.sha256_chip import sha256_instance
+    from ..stark.chips.ec import (
+        EC_CURVES,
+        EcScheduleAir,
+        LadderJob,
+        ec_schedule_trace,
+    )
+    from ..stark.chips.gcm_data import GcmDataAir, gcm_data_trace
+    from ..stark.chips.keccak import KeccakAir, keccak_trace
+    from ..stark.chips.keyschedule import KeyScheduleAir, keyschedule_trace
+    from ..stark.chips.stream_parser import (
+        StreamParserAir,
+        parser_sessions_from_replay,
+        parser_trace,
+    )
+    from ..stark.chips.xor_table import (
+        XorTableAir,
+        xor_table_trace,
+        xor_use_counts,
+    )
+
+    rec512 = getattr(out.replay, "sha512_recorder", None)
+    if rec512 is not None and rec512.events:
+        raise NotImplementedError(
+            "SHA-384 suites need Sha512Air, which is not ported")
+    if getattr(out.replay, "chacha_events", None):
+        raise NotImplementedError(
+            "ChaCha20-Poly1305 suites need ChaCha20Air, ChaChaControlAir and "
+            "ChaChaDataAir, which are not ported")
+
+    # key-schedule witness first: its SHA-hop and xor-table consumption
+    # feeds the other chips' multiplicities
+    ks_sessions = _derive_ks_sessions(out)
+    ks_trace = None
+    hop_counts: dict = {}
+    ks_xor_pairs: list = []
+    if ks_sessions:
+        ks_trace, hop_counts, ks_xor_pairs = keyschedule_trace(ks_sessions)
+
+    chips = [sha256_instance(out.replay.sha256_recorder.events,
+                             hop_counts=hop_counts)]
+    if out.replay.gcm_events:
+        events = out.replay.gcm_events
+        chips.extend(aes_instances(events))
+        chips.append(ghash_instance(events))
+        chips.append(gcm_control_instance(events, metas=out.gcm_metas,
+                                          v13=out.v13))
+        # stream binding chips: the parser locates every record in the
+        # committed tape; the data chip xors plaintext and matches the
+        # journal's filtered ranges; the xor table serves the nibble xors
+        ptrace, _ = parser_trace([parser_sessions_from_replay(
+            out.stream, events, out.v13, obj=1)])
+        chips.append(ChipInstance(air=StreamParserAir(), trace=ptrace,
+                                  publics=[]))
+        dtrace, _, xor_pairs = gcm_data_trace(
+            out.gcm_metas, events,
+            filtered=_filtered_multiplicities(out.journal, obj=1))
+        chips.append(ChipInstance(air=GcmDataAir(), trace=dtrace,
+                                  publics=[]))
+        xtrace, _ = xor_table_trace(
+            xor_use_counts(list(xor_pairs) + ks_xor_pairs))
+        chips.append(ChipInstance(air=XorTableAir(), trace=xtrace,
+                                  publics=[]))
+        # keccak chip: the journal's request/response hashes over the
+        # bus-bound application-stream bytes
+        ktrace, _ = keccak_trace([(1, 0, out.replay.request_plaintext),
+                                  (1, 1, out.replay.response_plaintext)])
+        chips.append(ChipInstance(air=KeccakAir(), trace=ktrace,
+                                  publics=[]))
+    # EC schedule: the ECDHE d·G / d·S dual ladder proven over the
+    # recorded mulmod statements (BUS_MODMUL sends from the ModMul chips
+    # feed the ladder's receives); the d·G lane is generator-pinned
+    # in-chip, and the d·S result is the key schedule's premaster
+    ecd = getattr(out.replay, "ecdhe_weierstrass", None)
+    ec_pairs = [ecd] if ecd is not None else []
+    ks_linked = {s.ec_rid for s in ks_sessions if s.ec_rid is not None}
+    jobs = []
+    for i, pair in enumerate(ec_pairs):
+        curve, scalar, server_point = pair
+        if curve not in EC_CURVES:
+            continue  # P-384 ladder width class
+        rid2 = 2 * i + 2
+        jobs.append(LadderJob(curve, scalar, curve.g, server_point,
+                              pb1=False, gb1=True,
+                              rid1=2 * i + 1, rid2=rid2,
+                              mres2=1 if rid2 in ks_linked else 0))
+    sends: dict = {}
+    if jobs:
+        etrace, sends = ec_schedule_trace(jobs)
+        chips.append(ChipInstance(air=EcScheduleAir(), trace=etrace,
+                                  publics=[]))
+    if ks_trace is not None:
+        chips.append(ChipInstance(air=KeyScheduleAir(), trace=ks_trace,
+                                  publics=[]))
+    if out.modmul_events:
+        chips.extend(modmul_instances(out.modmul_events, sends=sends))
+    return chips
+
+
+def _air_registry() -> dict:
+    """Zero-argument AIR constructor by chip name: the ported chips only,
+    so a proof naming any other chip is rejected as unknown."""
+    from ..stark.chips import AIRS
+
+    return dict(AIRS)
+
+
+def journal_airs(journal: bytes | list[bytes], proof: MachineProof) -> list:
+    """The chip set to verify a proof of this journal (or, for batches,
+    list of journals) against.  EVERY journal pins REQUIRED chips (SHA-256
+    and the 256-bit ModMul always — every session derives keys, hashes its
+    journal, and recovers the origin signer; the GCM triangle whenever the
+    journal carries record headers); a batch's requirement is the union.
+    The optional wider ModMul widths are taken from the proof itself —
+    extra valid chips never weaken the statement, unknown names reject."""
+    from ..guest.journal import decode_journal
+    from ..stark.chips.gcm_control import parse_gcm_records
+    from ..stark.verifier import VerificationError
+
+    registry = _air_registry()
+    journals = [journal] if isinstance(journal, (bytes, bytearray)) \
+        else list(journal)
+
+    required = {"Sha256Air", "ModMul256Air"}
+    need_aes = False
+    for jb in journals:
+        j = decode_journal(jb)
+        if j["gcm_records"]:
+            recs = parse_gcm_records(j["gcm_records"])
+            if any(r["cha"] for r in recs):
+                required |= {"ChaCha20Air", "ChaChaControlAir",
+                             "StreamParserAir", "ChaChaDataAir",
+                             "XorTableAir", "KeccakAir"}
+            if any(not r["cha"] for r in recs):
+                required |= {"GhashAir", "GcmControlAir",
+                             "StreamParserAir", "GcmDataAir",
+                             "XorTableAir", "KeccakAir"}
+                need_aes = True
+    names = {cp.name for cp in proof.chips}
+    missing = required - names
+    if need_aes and not ({"Aes128Air", "Aes256Air"} & names):
+        missing |= {"Aes128Air|Aes256Air"}
+    if missing:
+        raise VerificationError(f"proof is missing required chips: "
+                                f"{sorted(missing)}")
+    airs = []
+    for name in names:
+        if name not in registry:
+            raise VerificationError(f"unknown chip in proof: {name!r}")
+        airs.append(registry[name]())
+    return airs
+
+
+def journal_public_messages(journal: bytes, obj: int = 1,
+                            eid_off: int = 0) -> list[tuple]:
+    """The verifier-side bus messages implied by a journal: it RECEIVES
+    (mult −1) the SHA-chip's published digests — recomputing the journal
+    digest itself, reading stream_sha256 from the journal — and SENDS
+    (mult +1) every GCM record header for the control chip to consume and
+    every filtered-response byte for the GCM data chip to match against
+    decrypted plaintext.  The stream digest's payload carries the chain's
+    expose-blocks flag: GCM journals pin xb = 1, forcing the chain's
+    message blocks onto the bus where only the stream-parser chip can
+    consume them."""
+    import hashlib
+
+    from ..guest.journal import decode_journal
+    from ..stark.bus import (
+        BUS_FILTERED,
+        BUS_GCM_RECORD,
+        BUS_HASH_RESULT,
+        BUS_SHA_RESULT,
+        RESULT_TAG_JOURNAL,
+        RESULT_TAG_STREAM,
+        digest_limbs,
+        u16_limbs,
+    )
+    from ..stark.chips.gcm_control import parse_gcm_records
+
+    j = decode_journal(journal)
+    has_gcm = bool(j["gcm_records"])
+    msgs: list[tuple] = [
+        (BUS_SHA_RESULT,
+         [RESULT_TAG_JOURNAL]
+         + digest_limbs(hashlib.sha256(journal).digest()) + [0], -1),
+        (BUS_SHA_RESULT,
+         [RESULT_TAG_STREAM] + digest_limbs(j["stream_sha256"])
+         + [1 if has_gcm else 0], -1),
+    ]
+    for rec in parse_gcm_records(j["gcm_records"]):
+        # the trailing cha field discriminates ChaCha20-Poly1305 records
+        # (consumed by ChaChaControlAir) from AES-GCM ones (GcmControlAir,
+        # whose fingerprint has no cha term ≡ cha = 0)
+        msgs.append((BUS_GCM_RECORD,
+                     [eid_off + rec["eid"]] + u16_limbs(rec["nonce"])
+                     + u16_limbs(rec["tag"])
+                     + [rec["n_blocks"], rec["ct_len"], rec["v13"],
+                        rec["is_resp"], rec["cha"]], 1))
+    if has_gcm:
+        for begin, length, content in zip(
+                j["filtered_begins"], j["filtered_lengths"],
+                j["filtered_contents"]):
+            for k in range(length):
+                msgs.append((BUS_FILTERED,
+                             [obj, 1, begin + k, content[k]], 1))
+        # the keccak chip publishes the journal's request/response hashes
+        # over the bus-bound application-stream bytes
+        msgs.append((BUS_HASH_RESULT,
+                     [obj, 0] + u16_limbs(j["request_hash"]), -1))
+        msgs.append((BUS_HASH_RESULT,
+                     [obj, 1] + u16_limbs(j["response_hash"]), -1))
+    return msgs
+
+
+class StarkGuestProver:
+    """Verifies a guest witness's machine STARK proof against its journal
+    (`prove`, which runs the guest replay, comes with the replay's port)."""
+
+    def __init__(self, config: StarkConfig = DEFAULT_CONFIG):
+        self.config = config
+
+    def verify(self, journal: bytes, proof: bytes) -> bool:
+        """Raises stark.verifier.VerificationError on failure."""
+        mp = MachineProof.from_bytes(proof)
+        return verify_machine(
+            journal_airs(journal, mp), mp, binding=journal,
+            public_messages=journal_public_messages(journal),
+            config=self.config)

@@ -1,8 +1,18 @@
-"""The one-chip Sha256Air machine that chip_smoke.py and profile_prove.py
-drive: seeded messages hashed with result tags, their compressions as the
-chip's trace, and the public messages the verifier receives."""
+"""The machines that chip_smoke.py and profile_prove.py drive.
+
+* `sha_machine`: the one-chip Sha256Air machine — seeded messages hashed
+  with result tags, their compressions as the chip's trace, and the public
+  messages the verifier receives.
+* `session_machine`: the twelve chips of the recorded TLS 1.2
+  ECDHE(P-256)-RSA-AES128-GCM-SHA256 session in `data/`, built by
+  `provers.stark.build_chip_instances` from the session's witness, and its
+  journal (the proof's binding; `StarkGuestProver.verify` derives the
+  public messages from it).
+"""
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -11,7 +21,13 @@ from .stark.bus import BUS_SHA_RESULT, digest_limbs
 from .stark.chips.sha256 import Sha256Air, sha256_trace
 from .stark.machine import ChipInstance
 
-__all__ = ["sha_machine"]
+__all__ = ["sha_machine", "SESSION_WITNESS", "load_session",
+           "session_machine"]
+
+#: the recorded session's witness (see convert.py and
+#: scripts/record_session_c02f_p256.py)
+SESSION_WITNESS = (Path(__file__).resolve().parent / "data"
+                   / "session_c02f_p256.witness.cbor")
 
 
 def sha_machine(count: int, size: int, seed: int
@@ -29,3 +45,18 @@ def sha_machine(count: int, size: int, seed: int
     msgs = [(BUS_SHA_RESULT, [i + 1] + digest_limbs(d) + [0], -1)
             for i, d in enumerate(digests)]
     return ChipInstance(air=Sha256Air(), trace=trace, publics=publics), msgs
+
+
+def load_session():
+    """The recorded session's GuestOutput (convert.decode_witness)."""
+    from .convert import decode_witness
+
+    return decode_witness(SESSION_WITNESS.read_bytes())
+
+
+def session_machine() -> tuple[list[ChipInstance], bytes]:
+    """(the session's chip instances, its journal)."""
+    from .provers.stark import build_chip_instances
+
+    out = load_session()
+    return build_chip_instances(out), out.journal
