@@ -23,15 +23,23 @@ without printing a result:
      bytes must be identical; then the grinding path (the same machine
      with 8 proof-of-work bits), the one caller of the permute entry
      point, with the counters reset before and read after;
-  6. the session's kernel shapes: build the twelve chips of the recorded
-     TLS 1.2 ECDHE(P-256)-RSA-AES128-GCM-SHA256 session
-     (zktls_tpu_torch/data/, build_chip_instances on the decoded
-     witness) and hold hash_rows against its plain version at each chip's
-     LDE shape (4 × height by width) and its perm matrix's, and
+  6. the session from its GuestInput: read the recorded TLS 1.2
+     ECDHE(P-256)-RSA-AES128-GCM-SHA256 session
+     (zktls_tpu_torch/data/session_c02f_p256.guest_input.cbor) with the
+     port's GuestInput.from_cbor, replay it with the port's run_guest
+     (require_trust_anchor=False: the loopback certificate anchors to no
+     root), require its chain report and a 1,056-byte journal, build its
+     twelve chips with build_chip_instances, and require run_guest with
+     the defaults to raise ReplayError ("does not anchor"), as the
+     reference does; then hold hash_rows against its plain version at each
+     chip's LDE shape (4 × height by width) and its perm matrix's, and
      merkle_levels at the session's largest tree;
-  7. the session path: prove the twelve-chip machine bound to its journal
-     on the card, cold and warm (the launch counters reset just before the
-     warm prove and read just after); verify it with
+  7. the main path, StarkGuestProver().prove(guest_input): with the
+     session leaf's own SPKI hash added to the port's trust store (the one
+     change that lets the default replay accept the loopback session; the
+     journal is the same bytes), prove cold and warm on the card (the
+     launch counters reset just before the warm prove and read just
+     after), print the replay, chip-build and prove seconds; verify with
      StarkGuestProver().verify; reject the proof against a journal with a
      changed filtered byte; require the proof's SHA-256 to equal the
      digest of the port's CPU proof of the same session
@@ -53,6 +61,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 SEED = 20261016
 #: main-path input: 8 messages × 3,000 bytes = 384 compressions = 24,576
@@ -63,6 +72,14 @@ MAIN_MESSAGES, MAIN_BYTES = 8, 3000
 #: bytes
 SESSION_PROOF_SHA256 = (
     "b6516f414f18c407eace9e7ca9867bd6f672b14d16e8d7ada5b345411cb26b91")
+#: the recorded session's certificate report at its pinned time: one
+#: self-signed certificate, so no store anchor; root_spki_sha256 is then
+#: the SHA-256 of the leaf's own SubjectPublicKeyInfo
+SESSION_CHAIN = {
+    "hostname_match": True, "validity": True, "signatures": True,
+    "anchored": False, "root_spki_sha256":
+    "90b0c5f1760d339a3d12a1abf60ccd08760d542d1c38259654c95efb485ed45c"}
+SESSION_JOURNAL_BYTES = 1056
 
 
 def _nvidia_smi(fields: str) -> str:
@@ -117,12 +134,16 @@ def main() -> int:
         prove_machine,
         verify_machine,
     )
+    from zktls_tpu_torch.core.types import GuestInput
+    from zktls_tpu_torch.guest import roots
+    from zktls_tpu_torch.guest.program import run_guest
+    from zktls_tpu_torch.guest.replay import ReplayError
     from zktls_tpu_torch.provers.stark import (
         StarkGuestProver,
         build_chip_instances,
     )
     from zktls_tpu_torch.stark.verifier import VerificationError
-    from zktls_tpu_torch.workload import load_session, sha_machine
+    from zktls_tpu_torch.workload import SESSION_GUEST_INPUT, sha_machine
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -298,18 +319,38 @@ def main() -> int:
           f"launches {launches['permute']} (witness {ground.pow_witness}); "
           f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 6. the session's shapes
+    # 6. the session from its GuestInput
+    guest_input = GuestInput.from_cbor(SESSION_GUEST_INPUT.read_bytes())
     t0 = time.perf_counter()
-    session = load_session()
-    decode_s = time.perf_counter() - t0
+    session = run_guest(guest_input, require_trust_anchor=False)
+    replay_s = time.perf_counter() - t0
+    journal = session.journal
+    _require(session.chain == SESSION_CHAIN,
+             f"the session's chain report is {session.chain}")
+    _require(len(journal) == SESSION_JOURNAL_BYTES,
+             f"the session's journal is {len(journal)} bytes")
     t0 = time.perf_counter()
     chips = build_chip_instances(session)
     build_s = time.perf_counter() - t0
-    journal = session.journal
-    print(f"session: witness decoded in {decode_s:.2f} s, "
-          f"build_chip_instances {build_s:.2f} s: " + ", ".join(
-              f"{c.air.name} {c.trace.shape[0]}x{c.trace.shape[1]}"
-              for c in chips))
+    print(f"session: GuestInput {SESSION_GUEST_INPUT.name}, run_guest "
+          f"(require_trust_anchor=False) {replay_s:.2f} s: journal "
+          f"{len(journal)} bytes, suite 0x{session.replay.cipher_suite.id:04X}"
+          f", {len(session.replay.sha256_recorder.events)} SHA-256 "
+          f"compressions, {len(session.modmul_events)} ModMul events, "
+          f"{len(session.replay.gcm_events)} GCM events; chain "
+          f"{session.chain}")
+    print(f"session: build_chip_instances {build_s:.2f} s: " + ", ".join(
+        f"{c.air.name} {c.trace.shape[0]}x{c.trace.shape[1]}"
+        for c in chips))
+    try:
+        run_guest(guest_input)
+    except ReplayError as e:
+        _require("does not anchor" in str(e), f"run_guest raised {e}")
+        print(f"session: run_guest with the defaults refuses the loopback "
+              f"certificate ({e})")
+    else:
+        raise RuntimeError("run_guest accepted a chain that anchors to no "
+                           "root of the store")
     _require(len(chips) == 12, f"the session has {len(chips)} chips, not 12")
     shapes = []
     for c in chips:
@@ -332,34 +373,54 @@ def main() -> int:
     print(f"session kernel: merkle_levels == plain, every level, at "
           f"N={n_tree} (the session's largest tree), max abs err {err}")
 
-    # 7. the session path, through K1
-    t0 = time.perf_counter()
-    prove_machine(chips, journal, DEFAULT_CONFIG, device=dev)
-    torch.cuda.synchronize(dev)
-    cold_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats(dev)
-    timings = {}
-    k1.reset_launches()
-    p2.plain_calls = 0
-    t0 = time.perf_counter()
-    proof = prove_machine(chips, journal, DEFAULT_CONFIG, device=dev,
-                          timings=timings)
-    torch.cuda.synchronize(dev)
-    warm_s = time.perf_counter() - t0
+    # 7. the main path, StarkGuestProver.prove, through K1.  The loopback
+    # certificate is self-signed, so the leaf's SPKI hash joins the store:
+    # verify_chain then finds "a root that is itself in the store" and
+    # publishes that same hash as root_spki_sha256, so no journal byte
+    # changes.
+    leaf_spki = bytes.fromhex(SESSION_CHAIN["root_spki_sha256"])
+    store = roots.anchor_spki_hashes() | {leaf_spki}
+    print(f"session: the leaf's SPKI hash {leaf_spki.hex()} is added to "
+          f"the port's trust store ({len(store) - 1} anchors) for "
+          "StarkGuestProver.prove")
+    with mock.patch.object(roots, "anchor_spki_hashes", lambda: store):
+        cold: dict = {}
+        t0 = time.perf_counter()
+        cold_journal, _ = StarkGuestProver().prove(guest_input,
+                                                   timings=cold)
+        torch.cuda.synchronize(dev)
+        cold_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        timings = {}
+        k1.reset_launches()
+        p2.plain_calls = 0
+        t0 = time.perf_counter()
+        warm_journal, blob = StarkGuestProver().prove(guest_input,
+                                                      timings=timings)
+        torch.cuda.synchronize(dev)
+        warm_s = time.perf_counter() - t0
     session_launches, plain_calls = dict(k1.launches), p2.plain_calls
+    _require(cold_journal == warm_journal == journal,
+             "StarkGuestProver.prove gave another journal than run_guest")
     for name in ("hash_rows", "merkle_levels"):
         _require(session_launches[name] > 0,
                  f"the session path launched {name} no time")
     _require(plain_calls == 0, "the session path ran the plain Poseidon2")
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    blob = proof.to_bytes()
+    for label, t, tot in (("cold", cold, cold_s), ("warm", timings, warm_s)):
+        machine_s = sum(t[k] for k in STAGES)
+        print(f"session: {label} StarkGuestProver.prove {tot:.2f} s")
+        print(f"session: {label} run_guest {t['run_guest']:.2f} s")
+        print(f"session: {label} build_chip_instances "
+              f"{t['build_chip_instances']:.2f} s")
+        print(f"session: {label} prove_machine {machine_s:.2f} s")
     digest = hashlib.sha256(blob).hexdigest()
-    print(f"session: prove cold {cold_s:.2f} s, warm {warm_s:.2f} s; warm "
-          "stages " + ", ".join(f"{k} {timings[k]:.3f}" for k in STAGES)
-          + f"; proof {len(blob)} bytes, sha256 {digest}; K1 launches per "
-          f"prove {session_launches}, total "
-          f"{sum(session_launches.values())}, plain calls {plain_calls}; "
-          f"peak device memory {peak_gib:.2f} GiB")
+    print("session: warm stages " + ", ".join(
+        f"{k} {timings[k]:.3f}" for k in STAGES)
+        + f"; proof {len(blob)} bytes, sha256 {digest}; K1 launches per "
+        f"prove {session_launches}, total "
+        f"{sum(session_launches.values())}, plain calls {plain_calls}; "
+        f"peak device memory {peak_gib:.2f} GiB")
     _require(digest == SESSION_PROOF_SHA256,
              "the card's session proof differs from the CPU proof's digest")
     t0 = time.perf_counter()

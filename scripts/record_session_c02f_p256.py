@@ -1,5 +1,4 @@
-"""Record the TLS session that the PyTorch port proves, and derive its
-witness file.
+"""Record the TLS session that the PyTorch port proves.
 
 A loopback TLS 1.2 session against a local OpenSSL server (Python's `ssl`)
 with the suite ECDHE-RSA-AES128-GCM-SHA256 (0xC02F), the server limited to
@@ -10,14 +9,11 @@ template filters).  The recording is made by the JAX package's recorder
 `cryptography` package and is run once, off the card machine:
 
     JAX_PLATFORMS=cpu python scripts/record_session_c02f_p256.py
-    JAX_PLATFORMS=cpu python scripts/record_session_c02f_p256.py --witness-only
 
-It writes `zktls_tpu_torch/data/session_c02f_p256.guest_input.cbor` (the
-recorded GuestInput) and `.witness.cbor` (the replayed GuestOutput's fields
-that the port's `build_chip_instances` and journal helpers read; see
-`zktls_tpu_torch/convert.py`).  `--witness-only` re-derives the witness
-from the committed GuestInput: the replay is deterministic, so the bytes
-come out the same.
+It writes `zktls_tpu_torch/data/session_c02f_p256.guest_input.cbor`, the
+recorded GuestInput, which the port replays with its own `run_guest`.  A new
+recording changes every digest of the proof (`SESSION_PROOF_SHA256` in
+chip_smoke.py, `SESSION_CHAIN` there too).
 """
 
 from __future__ import annotations
@@ -38,7 +34,6 @@ sys.path.insert(0, str(ROOT))
 
 DATA = ROOT / "zktls_tpu_torch" / "data"
 GUEST_INPUT = DATA / "session_c02f_p256.guest_input.cbor"
-WITNESS = DATA / "session_c02f_p256.witness.cbor"
 BODY_LEN = 512
 PRICE_PREFIX = b'"price":"'
 PRICE_LEN = 10
@@ -135,37 +130,12 @@ def record() -> bytes:
     return gi.to_cbor()
 
 
-def witness(gi_bytes: bytes) -> bytes:
-    """Replay the GuestInput with the JAX package and encode the port's
-    witness of it."""
-    from zktls_tpu.core.types import GuestInput
-    from zktls_tpu.guest.program import run_guest
-    from zktls_tpu_torch.convert import (
-        encode_witness,
-        guest_output_from_reference,
-    )
-
-    out = run_guest(GuestInput.from_cbor(gi_bytes),
-                    require_trust_anchor=False)
-    return encode_witness(guest_output_from_reference(out))
-
-
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--witness-only", action="store_true",
-                    help="re-derive the witness from the committed "
-                         "GuestInput instead of recording anew")
-    args = ap.parse_args()
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     DATA.mkdir(exist_ok=True)
-    if args.witness_only:
-        gi_bytes = GUEST_INPUT.read_bytes()
-    else:
-        gi_bytes = record()
-        GUEST_INPUT.write_bytes(gi_bytes)
-    wit = witness(gi_bytes)
-    WITNESS.write_bytes(wit)
-    print(f"{GUEST_INPUT.name}: {len(gi_bytes)} bytes; "
-          f"{WITNESS.name}: {len(wit)} bytes")
+    gi_bytes = record()
+    GUEST_INPUT.write_bytes(gi_bytes)
+    print(f"{GUEST_INPUT.name}: {len(gi_bytes)} bytes")
 
 
 if __name__ == "__main__":

@@ -3,12 +3,14 @@ the CPU, and check the proof with both packages' verifiers.
 
     JAX_PLATFORMS=cpu python scripts/session_proof_cpu.py [--threads 8]
 
-Builds the chips from `zktls_tpu_torch/data/session_c02f_p256.witness.cbor`
+Replays `zktls_tpu_torch/data/session_c02f_p256.guest_input.cbor` with the
+port's `run_guest` and builds its chips
 (`zktls_tpu_torch.workload.session_machine`), proves them with
 `prove_machine(chips, binding=journal, device="cpu")` at DEFAULT_CONFIG,
 writes the proof to `build/session_c02f_p256.cpu.proof`, prints its SHA-256
 (the digest `chip_smoke.py` holds the card's proof to), and verifies it
-with the port's `StarkGuestProver().verify` and with the JAX package's.
+with the port's `StarkGuestProver(device="cpu").verify` and with the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ def main() -> None:
     torch.set_num_threads(args.threads)
     t0 = time.perf_counter()
     chips, journal = session_machine()
-    print(f"build_chip_instances {time.perf_counter() - t0:.2f} s: "
+    print(f"run_guest + build_chip_instances "
+          f"{time.perf_counter() - t0:.2f} s: "
           + ", ".join(f"{c.air.name} {c.trace.shape[0]}x{c.trace.shape[1]}"
                       for c in chips))
     timings: dict = {}
@@ -56,7 +59,8 @@ def main() -> None:
           f" -> {OUT.relative_to(ROOT)}")
 
     t0 = time.perf_counter()
-    StarkGuestProver().verify(journal, blob)  # raises VerificationError
+    # raises VerificationError
+    StarkGuestProver(device="cpu").verify(journal, blob)
     print(f"port StarkGuestProver.verify: ok ({time.perf_counter() - t0:.1f}"
           " s)")
     from zktls_tpu.provers.stark import StarkGuestProver as JaxProver

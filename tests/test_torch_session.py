@@ -1,9 +1,10 @@
 """The port's session path against the JAX package's, on the recorded
 TLS 1.2 ECDHE(P-256)-RSA-AES128-GCM-SHA256 loopback session committed in
-zktls_tpu_torch/data/: the witness file is the JAX replay of the committed
-GuestInput, and the port's build_chip_instances, journal helpers and LogUp
-perm traces give exactly the reference's values on it.  Exact equality
-throughout (field elements and bytes); no proof is made here."""
+zktls_tpu_torch/data/: each package replays the committed GuestInput with
+its own run_guest, and the port's build_chip_instances, journal helpers and
+LogUp perm traces give exactly the reference's values on it.  Exact
+equality throughout (field elements and bytes); no proof is made here.
+(tests/test_torch_guest.py holds the two replays equal field by field.)"""
 
 import numpy as np
 import pytest
@@ -13,7 +14,8 @@ from zktls_tpu.guest.program import run_guest
 from zktls_tpu.ops.field_ref import Fp4 as JFp4
 from zktls_tpu.provers import stark as jstark
 from zktls_tpu.stark.bus import delta_powers as jdelta_powers
-from zktls_tpu_torch import convert
+from zktls_tpu_torch.core.types import GuestInput as TGuestInput
+from zktls_tpu_torch.guest.program import run_guest as trun_guest
 from zktls_tpu_torch.ops.field_ref import Fp4
 from zktls_tpu_torch.provers import stark as tstark
 from zktls_tpu_torch.stark.bus import (
@@ -23,11 +25,9 @@ from zktls_tpu_torch.stark.bus import (
     delta_powers,
 )
 from zktls_tpu_torch.stark.verifier import VerificationError
-from zktls_tpu_torch.workload import SESSION_WITNESS
+from zktls_tpu_torch.workload import SESSION_GUEST_INPUT
 
 from .torch_threads import torch_threads_per_worker  # noqa: F401
-
-GUEST_INPUT = SESSION_WITNESS.with_name("session_c02f_p256.guest_input.cbor")
 
 #: the twelve chips of the session, in build order
 SESSION_CHIPS = ["Sha256Air", "Aes128Air", "GhashAir", "GcmControlAir",
@@ -41,16 +41,16 @@ GAMMA, DELTA = (61, 2, 9, 30), (19, 23, 4, 7)
 
 @pytest.fixture(scope="module")
 def session():
-    """One derivation for the module: the JAX replay of the committed
-    GuestInput, its chips, and the port's decoded witness and chips."""
-    ref_out = run_guest(GuestInput.from_cbor(GUEST_INPUT.read_bytes()),
+    """One derivation for the module: each package's replay of the
+    committed GuestInput and its chips."""
+    gi_bytes = SESSION_GUEST_INPUT.read_bytes()
+    ref_out = run_guest(GuestInput.from_cbor(gi_bytes),
                         require_trust_anchor=False)
-    witness = SESSION_WITNESS.read_bytes()
-    out = convert.decode_witness(witness)
+    out = trun_guest(TGuestInput.from_cbor(gi_bytes),
+                     require_trust_anchor=False)
     return {"ref_out": ref_out, "ref_chips":
             jstark.build_chip_instances(ref_out),
-            "witness": witness, "out": out,
-            "chips": tstark.build_chip_instances(out)}
+            "out": out, "chips": tstark.build_chip_instances(out)}
 
 
 def _machine_challenges():
@@ -65,24 +65,6 @@ def _balance(bus_sums, msgs, challenges):
         t = bus_term(challenges, tag, payload)
         total = total + (t if mult > 0 else Fp4(0) - t)
     return total
-
-
-def test_witness_is_the_reference_replay(session):
-    """(a) run_guest on the committed GuestInput, carried across and
-    encoded, is the committed witness byte for byte; decode → encode
-    round-trips."""
-    carried = convert.guest_output_from_reference(session["ref_out"])
-    assert convert.encode_witness(carried) == session["witness"]
-    assert convert.encode_witness(session["out"]) == session["witness"]
-    assert len(session["witness"]) <= 1_500_000
-    rep = session["out"].replay
-    assert rep.cipher_suite.id == 0xC02F and rep.version == 0x0303
-    assert rep.ecdhe_weierstrass[0].name == "secp256r1"
-    # 2048-bit RSA statements and 256-bit curve values survive exactly
-    ref_mm = session["ref_out"].modmul_events
-    assert [(e.a, e.b, e.r, e.m) for e in session["out"].modmul_events] \
-        == [(e.a, e.b, e.r, e.m) for e in ref_mm]
-    assert max(e.m.bit_length() for e in ref_mm) == 2048
 
 
 def test_chip_set_equals_reference(session):

@@ -7,7 +7,8 @@ an obvious counterpart:
   ops/       Baby-Bear field, quartic extension, Poseidon2 (plain torch
              version + the hand-written Hopper kernel in csrc/), Merkle
              trees, NTT/LDE
-  core/      the CBOR codec the proof bytes rest on, the stream tape
+  core/      the data model (Request, GuestInput and their CBOR/JSON
+             codecs), the CBOR codec the proof bytes rest on, the tapes
   stark/     config, challenger, AIR builders, LogUp bus helpers, the
              constraint-VM lowering, prover/verifier helpers and the
              machine prover/verifier
@@ -16,19 +17,22 @@ an obvious counterpart:
              session (SHA-256, AES-128, GHASH, GCM control and data, stream
              parser, xor table, Keccak, EC schedule, key schedule, ModMul)
              and their trace builders
-  guest/     the crypto helpers the chips use, journal decoding
-  provers/stark.py
-             build_chip_instances, journal_airs, journal_public_messages,
-             StarkGuestProver.verify
-  data/      a recorded session and its witness (the guest replay is not
-             ported yet)
-  convert.py carries the reference's objects across (duck-typed) and
-             encodes/decodes the session witness
+  guest/     the guest program: TLS 1.2 / 1.3 replay of a recorded session
+             (`program.run_guest`), certificate chains read by the port's
+             own DER reader (`der.py`, `x509.py`, `roots.py`), the crypto
+             it records, the journal codec
+  provers/   `stark.StarkGuestProver` (prove, verify),
+             `stark.build_chip_instances`, `mock.MockProver`
+  cli.py     `python -m zktls_tpu_torch.cli prove -i request.json
+             --fixture session.cbor [--mock]`
+  data/      a recorded session's GuestInput
+  convert.py carries the reference's objects across (duck-typed), for the
+             tests
   workload.py, profile_prove.py
              the machines chip_smoke.py drives (a seeded Sha256Air machine,
              the recorded session), and a device-time breakdown of a prove
 
-`stark.machine.prove_machine` runs on the CUDA card unless the caller
-passes device="cpu"; without a card and without an explicit CPU device it
-raises.  `stark.machine.verify_machine` is host code.
+`stark.machine.prove_machine` and `StarkGuestProver` run on the CUDA card
+unless the caller passes device="cpu"; without a card and without an
+explicit CPU device they raise.  `stark.machine.verify_machine` is host code.
 """

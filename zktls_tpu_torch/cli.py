@@ -1,0 +1,175 @@
+"""zktls command-line interface of the PyTorch/CUDA port.
+
+Mirrors the reference CLI surface (bins/zktls/src/main.rs:14-21,
+commands/prove.rs:14-48):
+
+  python -m zktls_tpu_torch.cli prove -i <request.json> -t <chain>
+              [-p <prover>] [--mock | --local] --fixture <recorded.cbor>
+              [-o <out.json>]
+
+Port of zktls_tpu.cli (same flags, output lines and JSON file).  `--fixture`
+replays a recorded session tape; the STARK prover runs on the CUDA card.
+Not ported yet, and each reported as an error (exit code 1): live
+recording (no `--fixture`), `--network`, `--compress`, `--wrap`, and the
+`serve` and `export-verifier` commands.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import pathlib
+import sys
+
+from .core.types import GuestInput, Request
+
+log = logging.getLogger("zktls")
+
+TARGET_CHAINS = ["evm", "solana", "sui", "aptos", "ton"]
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet to the PyTorch "
+                               "port (zktls_tpu_torch)")
+
+
+def _load_guest_input(args) -> GuestInput:
+    request = Request.from_json(pathlib.Path(args.input).read_text())
+    if not args.fixture:
+        raise _not_ported("live TLS recording (prove without --fixture)")
+    data = pathlib.Path(args.fixture).read_bytes()
+    try:
+        gi = GuestInput.from_cbor(data)
+        log.info("loaded recorded session from %s", args.fixture)
+        return GuestInput(request=request, response=gi.response)
+    except Exception:
+        pass
+    try:
+        from .core.legacy import LegacyGuestInput
+
+        legacy = LegacyGuestInput.from_cbor(data)
+    except Exception:
+        raise ValueError(
+            f"{args.fixture!r} is not a recorded session (neither "
+            "current- nor legacy-schema GuestInput CBOR)"
+        ) from None
+    log.info("loaded legacy-schema recorded session from %s", args.fixture)
+    gi = legacy.to_guest_input()
+    # keep the caller's request metadata when compatible
+    if gi.request.request_info.request == request.request_info.request:
+        gi.request = request
+    return gi
+
+
+def cmd_prove(args) -> int:
+    if not pathlib.Path(args.input).exists():
+        print(f"error: input file {args.input!r} does not exist",
+              file=sys.stderr)
+        return 2
+    for flag in ("network", "compress", "wrap"):
+        if getattr(args, flag):
+            raise _not_ported(f"--{flag}")
+    guest_input = _load_guest_input(args)
+
+    if args.mock:
+        from .provers.mock import MockProver
+
+        prover = MockProver()
+    else:
+        from .provers.stark import StarkGuestProver
+
+        prover = StarkGuestProver()
+
+    output, proof = prover.prove(guest_input)
+    print(f"output: 0x{output.hex()}")
+    print(f"proof: 0x{proof.hex()}")
+    if args.output:
+        out = {
+            "journal": "0x" + output.hex(),
+            "proof": "0x" + proof.hex(),
+            "target_chain": args.target,
+        }
+        pathlib.Path(args.output).write_text(json.dumps(out, indent=2))
+        log.info("wrote %s", args.output)
+    return 0
+
+
+def cmd_serve(args) -> int:
+    raise _not_ported("the serve command (the prover service)")
+
+
+def cmd_export_verifier(args) -> int:
+    raise _not_ported("the export-verifier command")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="zktls",
+        description="zkTLS prover on a CUDA card (PyTorch port; "
+        "capabilities of the3cloud/zktls)",
+    )
+    p.add_argument("-v", "--verbose", action="store_true")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    pr = sub.add_parser("prove", help="prove a TLS session")
+    pr.add_argument("-i", "--input", required=True,
+                    help="request JSON file")
+    pr.add_argument("-t", "--target", choices=TARGET_CHAINS, default="evm",
+                    help="target chain for the proof")
+    pr.add_argument("-p", "--prover", choices=["stark", "mock"],
+                    default="stark", help="prover backend")
+    mode = pr.add_mutually_exclusive_group()
+    mode.add_argument("--mock", action="store_true",
+                      help="execute the guest, emit real journal + empty proof")
+    mode.add_argument("--local", action="store_true",
+                      help="prove on the local CUDA card (default)")
+    mode.add_argument("--network", action="store_true",
+                      help="delegate proving to a remote prover service "
+                      "(not ported yet)")
+    pr.add_argument("--server",
+                    default=None,
+                    help="prover service URL for --network (not ported yet)")
+    pr.add_argument("--fixture", help="recorded session CBOR to replay "
+                    "(live recording is not ported yet)")
+    pr.add_argument("--compress", action="store_true",
+                    help="wrap the machine proof in the recursion layer "
+                    "(not ported yet)")
+    pr.add_argument("--wrap", action="store_true",
+                    help="full chain to a Groth16 seal (not ported yet)")
+    pr.add_argument("-o", "--output", help="write journal+proof JSON here")
+    pr.set_defaults(func=cmd_prove)
+
+    ev = sub.add_parser("export-verifier",
+                        help="export an on-chain verifier contract "
+                        "(not ported yet)")
+    ev.add_argument("-t", "--target", choices=TARGET_CHAINS, default="evm")
+    ev.add_argument("-p", "--prover", choices=["stark"], default="stark")
+    ev.add_argument("-o", "--output", help="output directory")
+    ev.set_defaults(func=cmd_export_verifier)
+
+    sv = sub.add_parser("serve",
+                        help="run a prover service (not ported yet)")
+    sv.add_argument("-p", "--prover", choices=["stark", "mock"],
+                    default="stark", help="prover backend to serve")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8472)
+    sv.set_defaults(func=cmd_serve)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="%(levelname)s %(name)s: %(message)s",
+    )
+    try:
+        return args.func(args)
+    except Exception as e:  # mirror the reference: print, don't propagate
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,9 +7,7 @@ its key block via the TLS 1.2 PRF; TLS 1.3 sessions use HKDF instead.
 All hashing flows through the witness-recording SHA-256 so every compression
 reaches the SHA-256 AIR chip.
 
-Port copy of zktls_tpu.guest.crypto.prf (same names and values; host code in
-numpy).  The SHA-384 PRF (`hmac_sha384`, `prf_sha384`) waits for the SHA-512
-chip and is not ported.
+Port copy of zktls_tpu.guest.crypto.prf (same names and values).
 """
 
 from __future__ import annotations
@@ -18,8 +16,9 @@ import struct
 
 from .sha256 import SHA256, SHA256Recorder
 
-__all__ = ["hmac_sha256", "prf_sha256", "hkdf_extract", "hkdf_expand",
-           "hkdf_expand_label", "tls13_derive_secret"]
+__all__ = ["hmac_sha256", "prf_sha256", "hmac_sha384", "prf_sha384",
+           "hkdf_extract", "hkdf_expand", "hkdf_expand_label",
+           "tls13_derive_secret"]
 
 
 def hmac_sha256(key: bytes, msg: bytes, rec: SHA256Recorder | None = None) -> bytes:
@@ -39,6 +38,32 @@ def prf_sha256(secret: bytes, label: bytes, seed: bytes, out_len: int,
     while len(out) < out_len:
         a = hmac_sha256(secret, a, rec)
         out += hmac_sha256(secret, a + ls, rec)
+    return out[:out_len]
+
+
+def hmac_sha384(key: bytes, msg: bytes, rec=None) -> bytes:
+    """HMAC-SHA-384 (block size 128) through the SHA-512 recorder — the
+    SHA-384 suites' PRF/HKDF core (RFC 5246 §5, RFC 8446 §7.1)."""
+    from .sha512 import SHA384
+
+    if len(key) > 128:
+        key = SHA384(key, recorder=rec).digest()
+    key = key.ljust(128, b"\x00")
+    inner = SHA384(bytes(b ^ 0x36 for b in key),
+                   recorder=rec).update(msg).digest()
+    return SHA384(bytes(b ^ 0x5C for b in key),
+                  recorder=rec).update(inner).digest()
+
+
+def prf_sha384(secret: bytes, label: bytes, seed: bytes, out_len: int,
+               rec=None) -> bytes:
+    """P_SHA384(secret, label ‖ seed) — RFC 5246 §5 for SHA-384 suites."""
+    ls = label + seed
+    out = b""
+    a = ls
+    while len(out) < out_len:
+        a = hmac_sha384(secret, a, rec)
+        out += hmac_sha384(secret, a + ls, rec)
     return out[:out_len]
 
 

@@ -2,12 +2,12 @@
 proves them as ONE machine proof; verifies a proof against its journal.
 
 Port copy of the machine half of zktls_tpu.provers.stark (same names and
-values).  The guest replay that produces the witness (`run_guest`) is not
-ported yet, so `build_chip_instances` takes a `convert.GuestOutput` (a
-recorded session's witness, `convert.decode_witness`) and
-`StarkGuestProver` has `verify` but no `prove`.  The chips of a TLS 1.2
-ECDHE(P-256)-RSA-AES128-GCM-SHA256 session are ported; a session that
-needs the SHA-512 chip or the ChaCha20 chips raises NotImplementedError.
+values).  `StarkGuestProver.prove` runs the port's guest replay
+(`guest.program.run_guest`), `build_chip_instances` and `prove_machine` on
+the CUDA card (or on the device the caller names).  The chips of a TLS
+1.2 ECDHE(P-256)-RSA-AES128-GCM-SHA256 session and of a TLS 1.3
+AES-128-GCM session are ported; a session that needs the SHA-512 chip or
+the ChaCha20 chips raises NotImplementedError.
 
 What `verify(journal, proof)` checks:
   * the proof transcript is bound to THIS journal (binding bytes);
@@ -23,8 +23,18 @@ What `verify(journal, proof)` checks:
 
 from __future__ import annotations
 
+import time
+
+from ..core.types import GuestInput
+from ..guest.program import GuestOutput, run_guest
 from ..stark.config import DEFAULT_CONFIG, StarkConfig
-from ..stark.machine import ChipInstance, MachineProof, verify_machine
+from ..stark.machine import (
+    ChipInstance,
+    MachineProof,
+    _resolve_device,
+    prove_machine,
+    verify_machine,
+)
 
 __all__ = ["StarkGuestProver", "build_chip_instances",
            "journal_public_messages", "journal_airs"]
@@ -298,11 +308,32 @@ def journal_public_messages(journal: bytes, obj: int = 1,
 
 
 class StarkGuestProver:
-    """Verifies a guest witness's machine STARK proof against its journal
-    (`prove`, which runs the guest replay, comes with the replay's port)."""
+    """ZkProver proving the guest witness as one machine STARK proof.
 
-    def __init__(self, config: StarkConfig = DEFAULT_CONFIG):
+    device: where `prove` runs the tensor work — the CUDA card by default
+    (the constructor raises without one), "cpu" for the plain torch
+    versions."""
+
+    def __init__(self, config: StarkConfig = DEFAULT_CONFIG, device=None):
         self.config = config
+        self.device = _resolve_device(device)
+
+    def prove(self, guest_input: GuestInput,
+              timings: dict | None = None) -> tuple[bytes, bytes]:
+        """(journal, proof bytes).  timings: if given, receives the seconds
+        of `run_guest` and `build_chip_instances` (host) besides
+        prove_machine's stages."""
+        t0 = time.perf_counter()
+        out: GuestOutput = run_guest(guest_input)
+        t1 = time.perf_counter()
+        chips = build_chip_instances(out)
+        if timings is not None:
+            timings["run_guest"] = t1 - t0
+            timings["build_chip_instances"] = time.perf_counter() - t1
+        proof = prove_machine(chips, binding=out.journal,
+                              config=self.config, device=self.device,
+                              timings=timings)
+        return out.journal, proof.to_bytes()
 
     def verify(self, journal: bytes, proof: bytes) -> bool:
         """Raises stark.verifier.VerificationError on failure."""

@@ -5,9 +5,13 @@
   messages the verifier receives.
 * `session_machine`: the twelve chips of the recorded TLS 1.2
   ECDHE(P-256)-RSA-AES128-GCM-SHA256 session in `data/`, built by
-  `provers.stark.build_chip_instances` from the session's witness, and its
-  journal (the proof's binding; `StarkGuestProver.verify` derives the
-  public messages from it).
+  `provers.stark.build_chip_instances` from the port's replay of the
+  session's GuestInput, and its journal (the proof's binding;
+  `StarkGuestProver.verify` derives the public messages from it).
+
+The session is a loopback recording whose self-signed certificate anchors
+to no root of the store, so it is replayed with
+`require_trust_anchor=False`.
 """
 
 from __future__ import annotations
@@ -21,13 +25,11 @@ from .stark.bus import BUS_SHA_RESULT, digest_limbs
 from .stark.chips.sha256 import Sha256Air, sha256_trace
 from .stark.machine import ChipInstance
 
-__all__ = ["sha_machine", "SESSION_WITNESS", "load_session",
-           "session_machine"]
+__all__ = ["sha_machine", "SESSION_GUEST_INPUT", "session_machine"]
 
-#: the recorded session's witness (see convert.py and
-#: scripts/record_session_c02f_p256.py)
-SESSION_WITNESS = (Path(__file__).resolve().parent / "data"
-                   / "session_c02f_p256.witness.cbor")
+#: the recorded session's GuestInput (scripts/record_session_c02f_p256.py)
+SESSION_GUEST_INPUT = (Path(__file__).resolve().parent / "data"
+                       / "session_c02f_p256.guest_input.cbor")
 
 
 def sha_machine(count: int, size: int, seed: int
@@ -47,16 +49,13 @@ def sha_machine(count: int, size: int, seed: int
     return ChipInstance(air=Sha256Air(), trace=trace, publics=publics), msgs
 
 
-def load_session():
-    """The recorded session's GuestOutput (convert.decode_witness)."""
-    from .convert import decode_witness
-
-    return decode_witness(SESSION_WITNESS.read_bytes())
-
-
 def session_machine() -> tuple[list[ChipInstance], bytes]:
-    """(the session's chip instances, its journal)."""
+    """(the session's chip instances, its journal): the port's `run_guest`
+    of the committed GuestInput, the chain not required to anchor."""
+    from .core.types import GuestInput
+    from .guest.program import run_guest
     from .provers.stark import build_chip_instances
 
-    out = load_session()
+    out = run_guest(GuestInput.from_cbor(SESSION_GUEST_INPUT.read_bytes()),
+                    require_trust_anchor=False)
     return build_chip_instances(out), out.journal
