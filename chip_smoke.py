@@ -23,29 +23,34 @@ without printing a result:
      bytes must be identical; then the grinding path (the same machine
      with 8 proof-of-work bits), the one caller of the permute entry
      point, with the counters reset before and read after;
-  6. the session from its GuestInput: read the recorded TLS 1.2
-     ECDHE(P-256)-RSA-AES128-GCM-SHA256 session
-     (zktls_tpu_torch/data/session_c02f_p256.guest_input.cbor) with the
-     port's GuestInput.from_cbor, replay it with the port's run_guest
+  6. each committed session (zktls_tpu_torch.workload.SESSIONS, in order:
+     c02f, the TLS 1.2 ECDHE(P-256)-RSA-AES128-GCM-SHA256 session; 1302,
+     TLS 1.3 AES-256-GCM-SHA384; 1303, TLS 1.3 CHACHA20-POLY1305; the
+     last two over x25519) from its GuestInput: read it with the port's
+     GuestInput.from_cbor, replay it with the port's run_guest
      (require_trust_anchor=False: the loopback certificate anchors to no
-     root), require its chain report and a 1,056-byte journal, build its
-     twelve chips with build_chip_instances, and require run_guest with
-     the defaults to raise ReplayError ("does not anchor"), as the
-     reference does; then hold hash_rows against its plain version at each
-     chip's LDE shape (4 × height by width) and its perm matrix's, and
-     merkle_levels at the session's largest tree;
-  7. the main path, StarkGuestProver().prove(guest_input): with the
-     session leaf's own SPKI hash added to the port's trust store (the one
-     change that lets the default replay accept the loopback session; the
-     journal is the same bytes), prove cold and warm on the card (the
-     launch counters reset just before the warm prove and read just
-     after), print the replay, chip-build and prove seconds; verify with
+     root), require its suite, chain report and journal length, build its
+     chips with build_chip_instances and require their names and shapes,
+     and require run_guest with the defaults to raise ReplayError ("does
+     not anchor"), as the reference does; then hold hash_rows against its
+     plain version at each chip's LDE shape (4 × height by width) and its
+     perm matrix's that no earlier phase held, and merkle_levels at the
+     session's largest tree;
+  7. the main path for that session, StarkGuestProver().prove(guest_input):
+     with the session leaf's own SPKI hash added to the port's trust store
+     (the one change that lets the default replay accept the loopback
+     session; the journal is the same bytes), prove cold (the session's
+     first prove: new shapes and plans) and warm on the card (the launch
+     counters reset just before each prove and read just after), print the
+     replay, chip-build and prove seconds and the peak device memory, and
+     require both proofs to be the same bytes; verify with
      StarkGuestProver().verify; reject the proof against a journal with a
      changed filtered byte; require the proof's SHA-256 to equal the
      digest of the port's CPU proof of the same session
      (SESSION_PROOF_SHA256, made by scripts/session_proof_cpu.py, whose
      bytes the JAX package's verifier accepts);
-  8. one JSON line describing each kernel;
+  8. one JSON line describing each kernel (launches: the c02f session's
+     warm prove; permute: the grinding path's);
   9. last line: {"ok": true, "device": {...}}.
 
 Needs one card, nvcc (/usr/local/cuda) and no network.
@@ -67,19 +72,17 @@ SEED = 20261016
 #: main-path input: 8 messages × 3,000 bytes = 384 compressions = 24,576
 #: rows, padded to 32,768
 MAIN_MESSAGES, MAIN_BYTES = 8, 3000
-#: SHA-256 of the port's DEFAULT_CONFIG proof of the recorded session on the
-#: CPU (python scripts/session_proof_cpu.py); the card must give the same
-#: bytes
-SESSION_PROOF_SHA256 = (
-    "b6516f414f18c407eace9e7ca9867bd6f672b14d16e8d7ada5b345411cb26b91")
-#: the recorded session's certificate report at its pinned time: one
-#: self-signed certificate, so no store anchor; root_spki_sha256 is then
-#: the SHA-256 of the leaf's own SubjectPublicKeyInfo
-SESSION_CHAIN = {
-    "hostname_match": True, "validity": True, "signatures": True,
-    "anchored": False, "root_spki_sha256":
-    "90b0c5f1760d339a3d12a1abf60ccd08760d542d1c38259654c95efb485ed45c"}
-SESSION_JOURNAL_BYTES = 1056
+#: SHA-256 of the port's DEFAULT_CONFIG proof of each committed session on
+#: the CPU (python scripts/session_proof_cpu.py --session NAME, whose proof
+#: the JAX package's verifier accepts); the card must give the same bytes
+SESSION_PROOF_SHA256 = {
+    "c02f":
+    "b6516f414f18c407eace9e7ca9867bd6f672b14d16e8d7ada5b345411cb26b91",
+    "1302":
+    "46651a3b48ce0e2a5a87f9572edc322776426d2ef119832ea84cfa3b1b7c7a94",
+    "1303":
+    "45f02303ff4510ae74ee32a69f0e2cb03f652f886f6e37eede640756cea100c4",
+}
 
 
 def _nvidia_smi(fields: str) -> str:
@@ -143,7 +146,7 @@ def main() -> int:
         build_chip_instances,
     )
     from zktls_tpu_torch.stark.verifier import VerificationError
-    from zktls_tpu_torch.workload import SESSION_GUEST_INPUT, sha_machine
+    from zktls_tpu_torch.workload import SESSIONS, sha_machine
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -175,6 +178,149 @@ def main() -> int:
         return int((got - want).abs().max())
 
     errs = {"permute": 0, "hash_rows": 0, "merkle_levels": 0}
+
+    def session_path(name: str, covered: set) -> dict:
+        """Phases 6 and 7 for one committed session; returns the K1
+        launches of its warm prove."""
+        spec = SESSIONS[name]
+        tag = f"session {name}:"
+        guest_input = GuestInput.from_cbor(spec.guest_input.read_bytes())
+        t0 = time.perf_counter()
+        session = run_guest(guest_input, require_trust_anchor=False)
+        replay_s = time.perf_counter() - t0
+        journal = session.journal
+        suite = session.replay.cipher_suite.id
+        _require(suite == spec.suite, f"{tag} the suite is 0x{suite:04X}")
+        _require(session.chain == spec.chain,
+                 f"{tag} the chain report is {session.chain}")
+        _require(len(journal) == spec.journal_bytes,
+                 f"{tag} the journal is {len(journal)} bytes")
+        t0 = time.perf_counter()
+        chips = build_chip_instances(session)
+        build_s = time.perf_counter() - t0
+        rec512 = session.replay.sha512_recorder
+        print(f"{tag} GuestInput {spec.guest_input.name}, run_guest "
+              f"(require_trust_anchor=False) {replay_s:.2f} s: journal "
+              f"{len(journal)} bytes, suite 0x{suite:04X}, "
+              f"{len(session.replay.sha256_recorder.events)} SHA-256 and "
+              f"{len(rec512.events) if rec512 else 0} SHA-512 compressions, "
+              f"{len(session.modmul_events)} ModMul events, "
+              f"{len(session.replay.gcm_events)} GCM and "
+              f"{len(session.replay.chacha_events or [])} ChaCha events; "
+              f"chain {session.chain}")
+        print(f"{tag} build_chip_instances {build_s:.2f} s: " + ", ".join(
+            f"{c.air.name} {c.trace.shape[0]}x{c.trace.shape[1]}"
+            for c in chips))
+        got = tuple((c.air.name, *c.trace.shape) for c in chips)
+        _require(got == spec.chips, f"{tag} the chips are {got}")
+        try:
+            run_guest(guest_input)
+        except ReplayError as e:
+            _require("does not anchor" in str(e), f"run_guest raised {e}")
+            print(f"{tag} run_guest with the defaults refuses the loopback "
+                  f"certificate ({e})")
+        else:
+            raise RuntimeError("run_guest accepted a chain that anchors to "
+                               "no root of the store")
+        shapes = []
+        for c in chips:
+            lde_rows = c.trace.shape[0] << DEFAULT_CONFIG.log_blowup
+            shapes += [(c.air.name, "trace", lde_rows, c.air.width),
+                       (c.air.name, "perm", lde_rows, c.air.perm_width)]
+        for chip, what, n, w in shapes:
+            if (n, w) in covered:
+                continue
+            covered.add((n, w))
+            rows = rand_field(n, w)
+            err = abs_err(mk.hash_rows(rows), mk.hash_rows_plain(rows))
+            errs["hash_rows"] = max(errs["hash_rows"], err)
+            _require(err == 0, f"hash_rows != plain at ({n}, {w})")
+            print(f"{tag} kernel: hash_rows == plain at ({n}, {w}), {chip} "
+                  f"{what} LDE, max abs err {err}")
+            del rows
+        n_tree = max(n for _, _, n, _ in shapes)
+        leaves = rand_field(n_tree, mk.DIGEST_WIDTH)
+        err = abs_err(mk.tree_levels(leaves), mk.tree_levels_plain(leaves))
+        errs["merkle_levels"] = max(errs["merkle_levels"], err)
+        _require(err == 0, f"merkle_levels != plain at N={n_tree}")
+        print(f"{tag} kernel: merkle_levels == plain, every level, at "
+              f"N={n_tree} (the session's largest tree), max abs err {err}")
+        del leaves
+
+        # the main path, StarkGuestProver.prove, through K1.  The loopback
+        # certificate is self-signed, so the leaf's SPKI hash joins the
+        # store: verify_chain then finds "a root that is itself in the
+        # store" and publishes that same hash as root_spki_sha256, so no
+        # journal byte changes.
+        leaf_spki = bytes.fromhex(spec.chain["root_spki_sha256"])
+        store = roots.anchor_spki_hashes() | {leaf_spki}
+        print(f"{tag} the leaf's SPKI hash {leaf_spki.hex()} is added to "
+              f"the port's trust store ({len(store) - 1} anchors) for "
+              "StarkGuestProver.prove")
+        runs = {}
+        with mock.patch.object(roots, "anchor_spki_hashes", lambda: store):
+            for label in ("cold", "warm"):
+                torch.cuda.reset_peak_memory_stats(dev)
+                timings: dict = {}
+                k1.reset_launches()
+                p2.plain_calls = 0
+                t0 = time.perf_counter()
+                run_journal, blob = StarkGuestProver().prove(
+                    guest_input, timings=timings)
+                torch.cuda.synchronize(dev)
+                runs[label] = (time.perf_counter() - t0, timings, blob,
+                               dict(k1.launches), p2.plain_calls,
+                               torch.cuda.max_memory_allocated(dev) / 2**30)
+                _require(run_journal == journal,
+                         f"{tag} StarkGuestProver.prove gave another "
+                         "journal than run_guest")
+        for label, (tot, t, _, got_launches, plain, peak) in runs.items():
+            for entry in ("hash_rows", "merkle_levels"):
+                _require(got_launches[entry] > 0,
+                         f"{tag} the {label} prove launched {entry} no time")
+            _require(plain == 0,
+                     f"{tag} the {label} prove ran the plain Poseidon2")
+            print(f"{tag} {label} StarkGuestProver.prove {tot:.2f} s")
+            print(f"{tag} {label} run_guest {t['run_guest']:.2f} s")
+            print(f"{tag} {label} build_chip_instances "
+                  f"{t['build_chip_instances']:.2f} s")
+            print(f"{tag} {label} prove_machine "
+                  f"{sum(t[k] for k in STAGES):.2f} s")
+            print(f"{tag} {label} peak device memory {peak:.2f} GiB")
+        _, timings, blob, warm_launches, plain, _ = runs["warm"]
+        _require(all(r[2] == blob for r in runs.values()),
+                 f"{tag} the cold and warm proofs differ")
+        digest = hashlib.sha256(blob).hexdigest()
+        print(f"{tag} warm stages " + ", ".join(
+            f"{k} {timings[k]:.3f}" for k in STAGES)
+            + f"; proof {len(blob)} bytes, sha256 {digest}; K1 launches per "
+            f"prove {warm_launches}, total {sum(warm_launches.values())}, "
+            f"plain calls {plain}")
+        _require(digest == SESSION_PROOF_SHA256[name],
+                 f"{tag} the card's proof differs from the CPU proof's "
+                 "digest")
+        t0 = time.perf_counter()
+        _require(StarkGuestProver().verify(journal, blob),
+                 f"{tag} StarkGuestProver rejected the proof")
+        verify_s = time.perf_counter() - t0
+        print(f"{tag} StarkGuestProver.verify {verify_s:.2f} s")
+        # flip the first filtered byte (the ABI's bytes[] at head word 13)
+        off = int.from_bytes(journal[13 * 32 : 14 * 32], "big")
+        rel = int.from_bytes(journal[off + 32 : off + 64], "big")
+        pos = off + 32 + rel + 32
+        bad = journal[:pos] + bytes([journal[pos] ^ 1]) + journal[pos + 1 :]
+        t0 = time.perf_counter()
+        try:
+            StarkGuestProver().verify(bad, blob)
+        except VerificationError as e:
+            print(f"{tag} verify ok; proof == CPU proof digest; journal "
+                  f"with filtered byte {pos} changed rejected in "
+                  f"{time.perf_counter() - t0:.2f} s ({e}); total "
+                  f"{time.perf_counter() - t_start:.1f} s")
+        else:
+            raise RuntimeError(f"{tag} the proof verified against a "
+                               "tampered journal")
+        return warm_launches
     for width in (16, 24):
         for n in (1, 511, 513, 131072):
             x = rand_field(n, width)
@@ -319,135 +465,17 @@ def main() -> int:
           f"launches {launches['permute']} (witness {ground.pow_witness}); "
           f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 6. the session from its GuestInput
-    guest_input = GuestInput.from_cbor(SESSION_GUEST_INPUT.read_bytes())
-    t0 = time.perf_counter()
-    session = run_guest(guest_input, require_trust_anchor=False)
-    replay_s = time.perf_counter() - t0
-    journal = session.journal
-    _require(session.chain == SESSION_CHAIN,
-             f"the session's chain report is {session.chain}")
-    _require(len(journal) == SESSION_JOURNAL_BYTES,
-             f"the session's journal is {len(journal)} bytes")
-    t0 = time.perf_counter()
-    chips = build_chip_instances(session)
-    build_s = time.perf_counter() - t0
-    print(f"session: GuestInput {SESSION_GUEST_INPUT.name}, run_guest "
-          f"(require_trust_anchor=False) {replay_s:.2f} s: journal "
-          f"{len(journal)} bytes, suite 0x{session.replay.cipher_suite.id:04X}"
-          f", {len(session.replay.sha256_recorder.events)} SHA-256 "
-          f"compressions, {len(session.modmul_events)} ModMul events, "
-          f"{len(session.replay.gcm_events)} GCM events; chain "
-          f"{session.chain}")
-    print(f"session: build_chip_instances {build_s:.2f} s: " + ", ".join(
-        f"{c.air.name} {c.trace.shape[0]}x{c.trace.shape[1]}"
-        for c in chips))
-    try:
-        run_guest(guest_input)
-    except ReplayError as e:
-        _require("does not anchor" in str(e), f"run_guest raised {e}")
-        print(f"session: run_guest with the defaults refuses the loopback "
-              f"certificate ({e})")
-    else:
-        raise RuntimeError("run_guest accepted a chain that anchors to no "
-                           "root of the store")
-    _require(len(chips) == 12, f"the session has {len(chips)} chips, not 12")
-    shapes = []
-    for c in chips:
-        lde_rows = c.trace.shape[0] << DEFAULT_CONFIG.log_blowup
-        shapes += [(c.air.name, "trace", lde_rows, c.air.width),
-                   (c.air.name, "perm", lde_rows, c.air.perm_width)]
-    for name, what, n, w in shapes:
-        rows = rand_field(n, w)
-        err = abs_err(mk.hash_rows(rows), mk.hash_rows_plain(rows))
-        errs["hash_rows"] = max(errs["hash_rows"], err)
-        _require(err == 0, f"hash_rows != plain at ({n}, {w})")
-        print(f"session kernel: hash_rows == plain at ({n}, {w}), {name} "
-              f"{what} LDE, max abs err {err}")
-    del rows
-    n_tree = max(n for _, _, n, _ in shapes)
-    leaves = rand_field(n_tree, mk.DIGEST_WIDTH)
-    err = abs_err(mk.tree_levels(leaves), mk.tree_levels_plain(leaves))
-    errs["merkle_levels"] = max(errs["merkle_levels"], err)
-    _require(err == 0, f"merkle_levels != plain at N={n_tree}")
-    print(f"session kernel: merkle_levels == plain, every level, at "
-          f"N={n_tree} (the session's largest tree), max abs err {err}")
-
-    # 7. the main path, StarkGuestProver.prove, through K1.  The loopback
-    # certificate is self-signed, so the leaf's SPKI hash joins the store:
-    # verify_chain then finds "a root that is itself in the store" and
-    # publishes that same hash as root_spki_sha256, so no journal byte
-    # changes.
-    leaf_spki = bytes.fromhex(SESSION_CHAIN["root_spki_sha256"])
-    store = roots.anchor_spki_hashes() | {leaf_spki}
-    print(f"session: the leaf's SPKI hash {leaf_spki.hex()} is added to "
-          f"the port's trust store ({len(store) - 1} anchors) for "
-          "StarkGuestProver.prove")
-    with mock.patch.object(roots, "anchor_spki_hashes", lambda: store):
-        cold: dict = {}
-        t0 = time.perf_counter()
-        cold_journal, _ = StarkGuestProver().prove(guest_input,
-                                                   timings=cold)
-        torch.cuda.synchronize(dev)
-        cold_s = time.perf_counter() - t0
-        torch.cuda.reset_peak_memory_stats(dev)
-        timings = {}
-        k1.reset_launches()
-        p2.plain_calls = 0
-        t0 = time.perf_counter()
-        warm_journal, blob = StarkGuestProver().prove(guest_input,
-                                                      timings=timings)
-        torch.cuda.synchronize(dev)
-        warm_s = time.perf_counter() - t0
-    session_launches, plain_calls = dict(k1.launches), p2.plain_calls
-    _require(cold_journal == warm_journal == journal,
-             "StarkGuestProver.prove gave another journal than run_guest")
+    # 6.-7. each committed session: replayed from its GuestInput, its chips
+    # built and K1 held against plain at their shapes, then the main path
+    # StarkGuestProver.prove on the card
+    covered = {(4096, 639), (n_main, w_main), (131072, 16)}
+    session_launches = {name: session_path(name, covered)
+                        for name in ("c02f", "1302", "1303")}
     for name in ("hash_rows", "merkle_levels"):
-        _require(session_launches[name] > 0,
-                 f"the session path launched {name} no time")
-    _require(plain_calls == 0, "the session path ran the plain Poseidon2")
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    for label, t, tot in (("cold", cold, cold_s), ("warm", timings, warm_s)):
-        machine_s = sum(t[k] for k in STAGES)
-        print(f"session: {label} StarkGuestProver.prove {tot:.2f} s")
-        print(f"session: {label} run_guest {t['run_guest']:.2f} s")
-        print(f"session: {label} build_chip_instances "
-              f"{t['build_chip_instances']:.2f} s")
-        print(f"session: {label} prove_machine {machine_s:.2f} s")
-    digest = hashlib.sha256(blob).hexdigest()
-    print("session: warm stages " + ", ".join(
-        f"{k} {timings[k]:.3f}" for k in STAGES)
-        + f"; proof {len(blob)} bytes, sha256 {digest}; K1 launches per "
-        f"prove {session_launches}, total "
-        f"{sum(session_launches.values())}, plain calls {plain_calls}; "
-        f"peak device memory {peak_gib:.2f} GiB")
-    _require(digest == SESSION_PROOF_SHA256,
-             "the card's session proof differs from the CPU proof's digest")
-    t0 = time.perf_counter()
-    _require(StarkGuestProver().verify(journal, blob),
-             "StarkGuestProver rejected the session proof")
-    verify_s = time.perf_counter() - t0
-    # flip the first filtered byte (the ABI's bytes[] at head word 13)
-    off = int.from_bytes(journal[13 * 32 : 14 * 32], "big")
-    rel = int.from_bytes(journal[off + 32 : off + 64], "big")
-    pos = off + 32 + rel + 32
-    bad = journal[:pos] + bytes([journal[pos] ^ 1]) + journal[pos + 1 :]
-    t0 = time.perf_counter()
-    try:
-        StarkGuestProver().verify(bad, blob)
-    except VerificationError as e:
-        print(f"session: StarkGuestProver.verify {verify_s:.2f} s ok; proof "
-              f"== CPU proof digest; journal with filtered byte {pos} "
-              f"changed rejected in {time.perf_counter() - t0:.2f} s ({e}); "
-              f"total {time.perf_counter() - t_start:.1f} s")
-    else:
-        raise RuntimeError("the session proof verified against a tampered "
-                           "journal")
-    launches["hash_rows"] = session_launches["hash_rows"]
-    launches["merkle_levels"] = session_launches["merkle_levels"]
+        launches[name] = session_launches["c02f"][name]
 
-    # 8. kernels (launches: the session path's; permute: the grinding
-    # path's, its one caller)
+    # 8. kernels (launches: the c02f session's warm prove; permute: the
+    # grinding path's, its one caller)
     print(json.dumps({"kernels": [{
         "name": f"poseidon2_{name}",
         "route": "cuda",

@@ -1,19 +1,29 @@
-"""Record the TLS session that the PyTorch port proves.
+"""Record the TLS sessions that the PyTorch port proves.
 
-A loopback TLS 1.2 session against a local OpenSSL server (Python's `ssl`)
-with the suite ECDHE-RSA-AES128-GCM-SHA256 (0xC02F), the server limited to
-the P-256 group, a self-signed 2048-bit RSA certificate and a response body
-of 512 seeded ASCII bytes (a JSON answer, one field of which the request's
-template filters).  The recording is made by the JAX package's recorder
+Each is a loopback session against a local OpenSSL server (Python's `ssl`)
+with a self-signed 2048-bit RSA certificate and a response body of 512
+seeded ASCII bytes (a JSON answer, one field of which the request's
+template filters).  `--suite` picks the session:
+
+* `c02f` (the default): TLS 1.2 ECDHE-RSA-AES128-GCM-SHA256, the server
+  limited to the P-256 group;
+* `1302`: TLS 1.3 with the recorder's default suite list, which a default
+  OpenSSL server answers with TLS_AES_256_GCM_SHA384 (0x1302), over x25519;
+* `1303`: TLS 1.3 with TLS_CHACHA20_POLY1305_SHA256 (0x1303) as the one
+  suite offered, over x25519.
+
+TLS 1.3 sessions leave the server's groups alone: the recorder offers only
+an x25519 key share.  The recording is made by the JAX package's recorder
 (`zktls_tpu.host.input_builder.TLSInputBuilder`), so this script needs the
 `cryptography` package and is run once, off the card machine:
 
-    JAX_PLATFORMS=cpu python scripts/record_session_c02f_p256.py
+    JAX_PLATFORMS=cpu python scripts/record_session_c02f_p256.py [--suite 1302]
 
-It writes `zktls_tpu_torch/data/session_c02f_p256.guest_input.cbor`, the
-recorded GuestInput, which the port replays with its own `run_guest`.  A new
-recording changes every digest of the proof (`SESSION_PROOF_SHA256` in
-chip_smoke.py, `SESSION_CHAIN` there too).
+It writes `zktls_tpu_torch/data/<session>.guest_input.cbor` (the file
+`zktls_tpu_torch.workload.SESSIONS` names), the recorded GuestInput, which
+the port replays with its own `run_guest`.  A new recording changes every
+digest of that session's proof (`proof_sha256` and `chain` in
+`workload.SESSIONS`, which chip_smoke.py holds the card to).
 """
 
 from __future__ import annotations
@@ -33,7 +43,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 DATA = ROOT / "zktls_tpu_torch" / "data"
-GUEST_INPUT = DATA / "session_c02f_p256.guest_input.cbor"
+#: suite → (the GuestInput file, the TLS 1.3 suites offered: None for the
+#: TLS 1.2 session, () for the recorder's default list)
+SUITES = {
+    "c02f": ("session_c02f_p256.guest_input.cbor", None),
+    "1302": ("session_1302_x25519.guest_input.cbor", ()),
+    "1303": ("session_1303_x25519.guest_input.cbor", (0x1303,)),
+}
 BODY_LEN = 512
 PRICE_PREFIX = b'"price":"'
 PRICE_LEN = 10
@@ -82,8 +98,12 @@ def _self_signed(tmp: pathlib.Path) -> tuple[pathlib.Path, pathlib.Path]:
     return certfile, keyfile
 
 
-def record() -> bytes:
-    """Record one session on the loopback; returns the GuestInput CBOR."""
+def record(tls13_offered: tuple[int, ...] | None) -> bytes:
+    """Record one session on the loopback; returns the GuestInput CBOR.
+    tls13_offered: None for the TLS 1.2 0xC02F/P-256 session, else a TLS
+    1.3 session offering these suites (the recorder's default list if
+    empty)."""
+    import zktls_tpu.host.recorder as recorder
     from zktls_tpu.core.types import PrefixTemplate, Request, RequestInfo
     from zktls_tpu.host.input_builder import TLSInputBuilder
 
@@ -91,10 +111,14 @@ def record() -> bytes:
     with tempfile.TemporaryDirectory() as tmp:
         certfile, keyfile = _self_signed(pathlib.Path(tmp))
         ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
-        ctx.minimum_version = ssl.TLSVersion.TLSv1_2
-        ctx.maximum_version = ssl.TLSVersion.TLSv1_2
-        ctx.set_ciphers("ECDHE-RSA-AES128-GCM-SHA256")
-        ctx.set_ecdh_curve("prime256v1")
+        if tls13_offered is None:
+            ctx.minimum_version = ssl.TLSVersion.TLSv1_2
+            ctx.maximum_version = ssl.TLSVersion.TLSv1_2
+            ctx.set_ciphers("ECDHE-RSA-AES128-GCM-SHA256")
+            ctx.set_ecdh_curve("prime256v1")
+        else:
+            ctx.minimum_version = ssl.TLSVersion.TLSv1_3
+            ctx.maximum_version = ssl.TLSVersion.TLSv1_3
         ctx.load_cert_chain(certfile, keyfile)
         srv = socket.socket()
         srv.bind(("127.0.0.1", 0))
@@ -124,18 +148,36 @@ def record() -> bytes:
                 remote_addr=f"127.0.0.1:{port}", server_name="localhost"),
             response_template=[PrefixTemplate(prefix=PRICE_PREFIX,
                                               length=PRICE_LEN)])
-        gi = TLSInputBuilder().build_input(req)
+        saved = recorder._OFFERED_SUITES
+        if tls13_offered:
+            recorder._OFFERED_SUITES = list(tls13_offered)
+        try:
+            gi = TLSInputBuilder().build_input(req)
+        finally:
+            recorder._OFFERED_SUITES = saved
         t.join(timeout=10)
         srv.close()
     return gi.to_cbor()
 
 
 def main() -> None:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--suite", choices=sorted(SUITES), default="c02f",
+                    help="the session to record (default c02f)")
+    args = ap.parse_args()
+    name, offered = SUITES[args.suite]
     DATA.mkdir(exist_ok=True)
-    gi_bytes = record()
-    GUEST_INPUT.write_bytes(gi_bytes)
-    print(f"{GUEST_INPUT.name}: {len(gi_bytes)} bytes")
+    gi_bytes = record(offered)
+    from zktls_tpu.core.types import GuestInput
+    from zktls_tpu.guest.program import run_guest
+
+    suite = run_guest(GuestInput.from_cbor(gi_bytes),
+                      require_trust_anchor=False).replay.cipher_suite.id
+    if suite != int(args.suite, 16):
+        raise SystemExit(f"the server negotiated 0x{suite:04X}, not "
+                         f"0x{args.suite.upper()}")
+    (DATA / name).write_bytes(gi_bytes)
+    print(f"{name}: {len(gi_bytes)} bytes, suite 0x{suite:04X}")
 
 
 if __name__ == "__main__":

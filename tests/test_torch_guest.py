@@ -4,8 +4,10 @@ GuestInput CBOR bytes, read by each package's own GuestInput.from_cbor, give
 the same GuestOutput in every field — journal, chain report, keys, randoms,
 plaintexts, and the SHA-256, SHA-512, ModMul, GCM and ChaCha event streams
 in the same order.  On the committed session and on loopback sessions of
-TLS 1.3 0x1301 (x25519), TLS 1.2 0xC030 (SHA-384) and 0xCCA8
-(ChaCha20-Poly1305) recorded here."""
+TLS 1.3 0x1301, 0x1302 (SHA-384) and 0x1303 (ChaCha20-Poly1305), all over
+x25519, and TLS 1.2 0xC030 (SHA-384) and 0xCCA8 (ChaCha20-Poly1305)
+recorded here.  (tests/test_torch_suites.py holds the chips of the SHA-384
+and ChaCha20-Poly1305 sessions equal to the reference's.)"""
 
 import dataclasses
 
@@ -195,6 +197,8 @@ def test_journal_codec_equals_reference(committed):
 
 SUITES = {
     0x1301: dict(offered=[0x1301]),
+    0x1302: dict(offered=[0x1302]),
+    0x1303: dict(offered=[0x1303]),
     0xC030: dict(tls12_ciphers="ECDHE-RSA-AES256-GCM-SHA384"),
     0xCCA8: dict(tls12_ciphers="ECDHE-RSA-CHACHA20-POLY1305"),
 }
@@ -216,10 +220,10 @@ def test_loopback_run_guest_equals_reference(loopback, suite):
     assert _plain(out) == _plain(ref)
     assert out.replay.sha256_recorder.events == \
         events_from_reference(ref.replay.sha256_recorder.events)
-    has_512 = suite == 0xC030
+    has_512 = suite in (0xC030, 0x1302)
     assert (out.replay.sha512_recorder is not None) == has_512
-    assert bool(out.replay.chacha_events) == (suite == 0xCCA8)
-    assert out.v13 == (suite == 0x1301)
+    assert bool(out.replay.chacha_events) == (suite in (0xCCA8, 0x1303))
+    assert out.v13 == (suite >> 8 == 0x13)
 
 
 def test_loopback_tls13_chips_equal_reference(loopback):
@@ -232,9 +236,3 @@ def test_loopback_tls13_chips_equal_reference(loopback):
     for m, w in zip(mine, want):
         np.testing.assert_array_equal(m.trace, np.asarray(w.trace))
         assert m.publics == [int(v) for v in w.publics]
-
-
-@pytest.mark.parametrize("suite", [0xC030, 0xCCA8], ids=lambda s: f"{s:04x}")
-def test_loopback_unported_chips_raise(loopback, suite):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tstark.build_chip_instances(loopback[suite][0])

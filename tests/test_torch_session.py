@@ -109,7 +109,7 @@ def test_journal_messages_and_airs_equal_reference(session):
         journal, proof_naming(names)))
     assert mine == ref == sorted(names)
     with pytest.raises(VerificationError, match="unknown chip"):
-        tstark.journal_airs(journal, proof_naming(names + ["Sha512Air"]))
+        tstark.journal_airs(journal, proof_naming(names + ["Sponge16Air"]))
     with pytest.raises(VerificationError, match="missing required"):
         tstark.journal_airs(journal, proof_naming(names[1:]))
 

@@ -40,14 +40,20 @@ def aes128_instance(events: list[GCMEvent]) -> ChipInstance:
 
 def aes_instances(events: list[GCMEvent]) -> list[ChipInstance]:
     """Route each GCM event to the AES chip matching its key size
-    (only AES-128 is ported: SHA-384 suites' 32-byte keys raise); event ids
+    (AES-128 or AES-256 — SHA-384 suites use 32-byte keys); event ids
     stay the global enumeration, so the control chip's receives match
     regardless of which chip served the block."""
+    from ..stark.chips.aes256 import Aes256Air, aes256_trace
+
     blocks = aes_event_blocks(events)
-    if any(len(b[1]) != 16 for b in blocks):
-        raise NotImplementedError(
-            "AES-256 record keys need Aes256Air, which is not ported")
-    if not blocks:
-        return []
-    trace, publics = aes128_trace(blocks)
-    return [ChipInstance(air=_AIR, trace=trace, publics=publics)]
+    b128 = [b for b in blocks if len(b[1]) == 16]
+    b256 = [b for b in blocks if len(b[1]) == 32]
+    out = []
+    if b128:
+        trace, publics = aes128_trace(b128)
+        out.append(ChipInstance(air=_AIR, trace=trace, publics=publics))
+    if b256:
+        trace, publics = aes256_trace(b256)
+        out.append(ChipInstance(air=Aes256Air(), trace=trace,
+                                publics=publics))
+    return out

@@ -1,17 +1,19 @@
 """Where the time of one prove goes, on the card.
 
-    python3 -m zktls_tpu_torch.profile_prove [--workload sha|session]
+    python3 -m zktls_tpu_torch.profile_prove [--workload sha|c02f|1302|1303]
 
 Proves a machine at DEFAULT_CONFIG three times — `sha` (the default): the
-32768 × 639 Sha256Air machine of chip_smoke.py's first path; `session`: the
-twelve-chip machine of the recorded TLS session in data/, bound to its
-journal — cold (first use: kernel build, constraint lowering, host tables),
-warm with per-stage seconds, and warm under torch.profiler.  Prints one JSON line: the card, the cold and warm wall
-seconds, the warm stages, the profiled prove's wall and summed device
-seconds (their ratio is the device-busy share: the port runs on one
+32768 × 639 Sha256Air machine of chip_smoke.py's first path; `c02f` (or
+`session`), `1302`, `1303`: the machine of that recorded TLS session in
+data/ (`workload.SESSIONS`), bound to its journal — cold (first use: kernel
+build, constraint lowering, host tables), warm with per-stage seconds, and
+warm under torch.profiler.  Prints one JSON line: the card, the cold and
+warm wall seconds, the warm stages, the profiled prove's wall and summed
+device seconds (their ratio is the device-busy share: the port runs on one
 stream, so device activities do not overlap), device ms and launches of
 each Poseidon2 entry point (permute, hash_rows, merkle_levels) and their
-sum beside the least time the card could take for the same permutations,
+sum beside the least time the card could take for the same permutations
+(in all, and for the leaf sponges and the tree compressions apart),
 device time by kind of activity (torch elementwise kernels, `cat`, copies,
 …), and the top activities.
 """
@@ -30,7 +32,7 @@ from .ops import cuda_poseidon2
 from .ops.merkle import LEAF_RATE
 from .stark.config import DEFAULT_CONFIG
 from .stark.machine import STAGES, prove_machine
-from .workload import session_machine, sha_machine
+from .workload import SESSIONS, session_machine, sha_machine
 
 SEED = 20261016
 
@@ -104,7 +106,8 @@ def _device_rows(prof) -> list[tuple[str, int, float]]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", choices=("sha", "session"), default="sha")
+    ap.add_argument("--workload", default="sha",
+                    choices=("sha", "session", *SESSIONS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
@@ -120,7 +123,8 @@ def main() -> int:
         inst, _ = sha_machine(8, 3000, SEED)
         chips, binding = [inst], b"chip-smoke sha256 machine"
     else:
-        chips, binding = session_machine()
+        chips, binding = session_machine(
+            "c02f" if args.workload == "session" else args.workload)
 
     def prove(timings=None):
         t0 = time.perf_counter()
@@ -159,6 +163,9 @@ def main() -> int:
         "k1_device_s": sum(v["ms"] for v in k1.values()) / 1e3,
         "k1_states": states,
         "k1_bound": cuda_poseidon2.bound(states, sms, clock_mhz),
+        "k1_bound_by_entry_point": {
+            name: cuda_poseidon2.bound({w: states[w]}, sms, clock_mhz)
+            for name, w in (("hash_rows", 24), ("merkle_levels", 16))},
         "top_device": [{"name": n[:90], "count": c, "ms": us / 1e3}
                        for n, c, us in rows[:25]],
     }))

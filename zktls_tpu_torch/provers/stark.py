@@ -4,10 +4,9 @@ proves them as ONE machine proof; verifies a proof against its journal.
 Port copy of the machine half of zktls_tpu.provers.stark (same names and
 values).  `StarkGuestProver.prove` runs the port's guest replay
 (`guest.program.run_guest`), `build_chip_instances` and `prove_machine` on
-the CUDA card (or on the device the caller names).  The chips of a TLS
-1.2 ECDHE(P-256)-RSA-AES128-GCM-SHA256 session and of a TLS 1.3
-AES-128-GCM session are ported; a session that needs the SHA-512 chip or
-the ChaCha20 chips raises NotImplementedError.
+the CUDA card (or on the device the caller names).  Every suite the
+reference proves has its chips: AES-128/256-GCM with SHA-256 or SHA-384,
+and ChaCha20-Poly1305, over TLS 1.2 and TLS 1.3.
 
 What `verify(journal, proof)` checks:
   * the proof transcript is bound to THIS journal (binding bytes);
@@ -86,23 +85,17 @@ def _derive_ks_sessions(out, obj: int = 1, ec_rid: int | None = 2,
                       + rep.client_random, **kw)]
 
 
-def build_chip_instances(out) -> list[ChipInstance]:
-    """The machine chip set for one session's guest execution (a
-    GuestOutput; the reference's batch merge, which presets the chip
-    inputs of several sessions, is not ported)."""
-    from ..models.aes128_chip import aes_instances
-    from ..models.ghash_chip import gcm_control_instance, ghash_instance
-    from ..models.modmul_chip import modmul_instances
-    from ..models.sha256_chip import sha256_instance
-    from ..stark.chips.ec import (
-        EC_CURVES,
-        EcScheduleAir,
-        LadderJob,
-        ec_schedule_trace,
-    )
-    from ..stark.chips.gcm_data import GcmDataAir, gcm_data_trace
+def _stream_chips(out, events, data_air, ks_xor_pairs: list,
+                  le_pairs: int = 0) -> list[ChipInstance]:
+    """The stream-binding chips of a session's records (AES-GCM or
+    ChaCha20-Poly1305 `events`): the parser locates every record in the
+    committed tape; the data chip (`data_air`) xors plaintext and matches
+    the journal's filtered ranges; the xor table serves the nibble xors
+    (the key schedule's too); the keccak chip publishes the journal's
+    request/response hashes over the bus-bound application-stream
+    bytes."""
+    from ..stark.chips.gcm_data import gcm_data_trace
     from ..stark.chips.keccak import KeccakAir, keccak_trace
-    from ..stark.chips.keyschedule import KeyScheduleAir, keyschedule_trace
     from ..stark.chips.stream_parser import (
         StreamParserAir,
         parser_sessions_from_replay,
@@ -114,14 +107,48 @@ def build_chip_instances(out) -> list[ChipInstance]:
         xor_use_counts,
     )
 
-    rec512 = getattr(out.replay, "sha512_recorder", None)
-    if rec512 is not None and rec512.events:
-        raise NotImplementedError(
-            "SHA-384 suites need Sha512Air, which is not ported")
-    if getattr(out.replay, "chacha_events", None):
-        raise NotImplementedError(
-            "ChaCha20-Poly1305 suites need ChaCha20Air, ChaChaControlAir and "
-            "ChaChaDataAir, which are not ported")
+    ptrace, _ = parser_trace([parser_sessions_from_replay(
+        out.stream, events, out.v13, obj=1)])
+    dtrace, _, xor_pairs = gcm_data_trace(
+        out.gcm_metas, events,
+        filtered=_filtered_multiplicities(out.journal, obj=1),
+        le_pairs=le_pairs)
+    xtrace, _ = xor_table_trace(
+        xor_use_counts(list(xor_pairs) + ks_xor_pairs))
+    ktrace, _ = keccak_trace([(1, 0, out.replay.request_plaintext),
+                              (1, 1, out.replay.response_plaintext)])
+    return [ChipInstance(air=StreamParserAir(), trace=ptrace, publics=[]),
+            ChipInstance(air=data_air, trace=dtrace, publics=[]),
+            ChipInstance(air=XorTableAir(), trace=xtrace, publics=[]),
+            ChipInstance(air=KeccakAir(), trace=ktrace, publics=[])]
+
+
+def build_chip_instances(out) -> list[ChipInstance]:
+    """The machine chip set for one session's guest execution (a
+    GuestOutput; the reference's batch merge, which presets the chip
+    inputs of several sessions, is not ported)."""
+    from ..models.aes128_chip import aes_instances
+    from ..models.ghash_chip import gcm_control_instance, ghash_instance
+    from ..models.modmul_chip import modmul_instances
+    from ..models.sha256_chip import sha256_instance
+    from ..stark.chips.chacha import (
+        ChaCha20Air,
+        chacha_event_blocks,
+        chacha_trace,
+    )
+    from ..stark.chips.chacha_control import (
+        ChaChaControlAir,
+        chacha_control_trace,
+    )
+    from ..stark.chips.ec import (
+        EC_CURVES,
+        EcScheduleAir,
+        LadderJob,
+        ec_schedule_trace,
+    )
+    from ..stark.chips.gcm_data import ChaChaDataAir, GcmDataAir
+    from ..stark.chips.keyschedule import KeyScheduleAir, keyschedule_trace
+    from ..stark.chips.sha512 import Sha512Air, sha512_trace
 
     # key-schedule witness first: its SHA-hop and xor-table consumption
     # feeds the other chips' multiplicities
@@ -134,34 +161,42 @@ def build_chip_instances(out) -> list[ChipInstance]:
 
     chips = [sha256_instance(out.replay.sha256_recorder.events,
                              hop_counts=hop_counts)]
+    rec512 = getattr(out.replay, "sha512_recorder", None)
+    if rec512 is not None and rec512.events:
+        # SHA-384 suites: transcript/PRF/HKDF compressions on the SHA-512
+        # chip (IV-rooted chains)
+        trace512, p512 = sha512_trace(rec512.events)
+        chips.append(ChipInstance(air=Sha512Air(), trace=trace512,
+                                  publics=p512))
     if out.replay.gcm_events:
         events = out.replay.gcm_events
         chips.extend(aes_instances(events))
         chips.append(ghash_instance(events))
         chips.append(gcm_control_instance(events, metas=out.gcm_metas,
                                           v13=out.v13))
-        # stream binding chips: the parser locates every record in the
-        # committed tape; the data chip xors plaintext and matches the
-        # journal's filtered ranges; the xor table serves the nibble xors
-        ptrace, _ = parser_trace([parser_sessions_from_replay(
-            out.stream, events, out.v13, obj=1)])
-        chips.append(ChipInstance(air=StreamParserAir(), trace=ptrace,
-                                  publics=[]))
-        dtrace, _, xor_pairs = gcm_data_trace(
-            out.gcm_metas, events,
-            filtered=_filtered_multiplicities(out.journal, obj=1))
-        chips.append(ChipInstance(air=GcmDataAir(), trace=dtrace,
-                                  publics=[]))
-        xtrace, _ = xor_table_trace(
-            xor_use_counts(list(xor_pairs) + ks_xor_pairs))
-        chips.append(ChipInstance(air=XorTableAir(), trace=xtrace,
-                                  publics=[]))
-        # keccak chip: the journal's request/response hashes over the
-        # bus-bound application-stream bytes
-        ktrace, _ = keccak_trace([(1, 0, out.replay.request_plaintext),
-                                  (1, 1, out.replay.response_plaintext)])
-        chips.append(ChipInstance(air=KeccakAir(), trace=ktrace,
-                                  publics=[]))
+        chips.extend(_stream_chips(out, events, GcmDataAir(), ks_xor_pairs))
+    chacha_events = getattr(out.replay, "chacha_events", None)
+    cc_sends: dict = {}
+    if chacha_events:
+        # ChaCha suites: every keystream block (the Poly1305 one-time-key
+        # block included) proven by the ChaCha20 chip.  With record
+        # metadata the sessions get full record binding: the control chip
+        # consumes the journal record headers, the parser locates every
+        # record in the committed tape, the data chip xors plaintext, and
+        # the Poly1305 tag chain (recorded mulmods over 2^130 − 5 on the
+        # ModMul chip) is composed into the in-circuit tag check
+        consumed: dict = {}
+        if out.gcm_metas and not out.replay.gcm_events:
+            ctl_trace, _, cc_sends, consumed = chacha_control_trace(
+                chacha_events, out.gcm_metas)
+            chips.append(ChipInstance(air=ChaChaControlAir(),
+                                      trace=ctl_trace, publics=[]))
+            chips.extend(_stream_chips(out, chacha_events, ChaChaDataAir(),
+                                       ks_xor_pairs, le_pairs=1))
+        ctrace, cpub = chacha_trace(chacha_event_blocks(chacha_events),
+                                    consumed=consumed)
+        chips.append(ChipInstance(air=ChaCha20Air(), trace=ctrace,
+                                  publics=cpub))
     # EC schedule: the ECDHE d·G / d·S dual ladder proven over the
     # recorded mulmod statements (BUS_MODMUL sends from the ModMul chips
     # feed the ladder's receives); the d·G lane is generator-pinned
@@ -184,6 +219,9 @@ def build_chip_instances(out) -> list[ChipInstance]:
         etrace, sends = ec_schedule_trace(jobs)
         chips.append(ChipInstance(air=EcScheduleAir(), trace=etrace,
                                   publics=[]))
+    # Poly1305 accumulator statements consumed by the ChaCha control chip
+    for key, cnt in cc_sends.items():
+        sends[key] = sends.get(key, 0) + cnt
     if ks_trace is not None:
         chips.append(ChipInstance(air=KeyScheduleAir(), trace=ks_trace,
                                   publics=[]))

@@ -47,7 +47,7 @@ this is a documented completeness restriction, not a soundness gap —
 the tape is committed, so the padding bytes are not prover-choosable.
 
 Port copy of zktls_tpu.stark.chips.gcm_data (same names and values; host
-code in numpy).  Its ChaCha20-Poly1305 subclass ChaChaDataAir is not ported.
+code in numpy).
 """
 
 from __future__ import annotations
@@ -56,18 +56,20 @@ import numpy as np
 
 from ..air import Air, AirBuilder
 from ..bus import (
+    BUS_CHACHA_KS,
     BUS_CT_BYTE,
     BUS_FILTERED,
     BUS_GCM_CT,
     BUS_GCM_KS,
     BUS_HASH_BYTE,
+    BUS_POLY_CT,
     BUS_XOR,
     np_bus_inverse_terms,
 )
 from ..ext_val import ExtVal
 from .stream_parser import RPOS_SENTINEL
 
-__all__ = ["GcmDataAir", "gcm_data_trace",
+__all__ = ["GcmDataAir", "ChaChaDataAir", "gcm_data_trace",
            "ROWS_PER_BLOCK"]
 
 P = 2013265921
@@ -318,6 +320,23 @@ class GcmDataAir(Air):
         return np.concatenate(
             [inv_ct, inv_ks, inv_xhi, inv_xlo, inv_blk, inv_filt, inv_hb,
              u, acc], axis=1).astype(np.uint32)
+
+
+class ChaChaDataAir(GcmDataAir):
+    """The data chip for ChaCha20-Poly1305 records: identical parser /
+    xor / filtered / hash-byte / inner-content-type wiring, but the
+    keystream arrives from the ChaCha record-control chip
+    (BUS_CHACHA_KS) and the assembled zero-padded ciphertext blocks are
+    consumed by the control chip's Poly1305 accumulation rows
+    (BUS_POLY_CT) instead of GHASH.  Both limb packings are
+    little-endian byte pairs — the ChaCha chip's native limb order and
+    the Poly1305 little-endian block interpretation — so no byteswap
+    gadget exists anywhere on the path."""
+
+    name = "ChaChaDataAir"
+    KS_BUS = BUS_CHACHA_KS
+    BLK_BUS = BUS_POLY_CT
+    LE_PAIRS = 1
 
 
 # ---------------------------------------------------------------------------
