@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (zktls_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PATH,...]
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result:
 
   1. the card's name and power limit (nvidia-smi);
   2. build the Poseidon2 kernels (K1: permute, hash_rows, merkle_levels)
-     from zktls_tpu_torch/csrc/;
+     from zktls_tpu_torch/csrc/, and the host Poseidon2 library
+     (csrc/poseidon2_host.c, the system C compiler); hold the library's
+     permute_batch against the pure-Python plain version at widths 16 and
+     24 on seeded states, exactly;
   3. hold each entry point against its plain torch version on the card,
      exactly: permute at widths 16 and 24, several batch sizes, rows inside
      a larger batch; hash_rows at several (N, W), the main path's
@@ -49,15 +52,42 @@ without printing a result:
      digest of the port's CPU proof of the same session
      (SESSION_PROOF_SHA256, made by scripts/session_proof_cpu.py, whose
      bytes the JAX package's verifier accepts);
-  8. one JSON line describing each kernel (launches: the c02f session's
-     warm prove; permute: the grinding path's);
-  9. last line: {"ok": true, "device": {...}}.
+  8. a preprocessed machine (workload.preprocessed_machine: a FixedMulAir
+     chip of 16,384 rows with its program in preprocessed columns beside a
+     Fibonacci chip of 8,192): prove it on the card and on the CPU (the
+     same bytes), verify with its vk root, and prove it again with host
+     spill and chunked DEEP forced (spill_bytes=0, chunked_deep_bytes=0):
+     the same bytes;
+  9. the batches (workload.BATCHES), the c02f session twice (c02f_x2) and
+     eight times (c02f_x8, the slice's full-width path): replay each
+     session, merge and build the chips and require their shapes, hold
+     hash_rows against its plain version at every LDE and perm shape no
+     earlier phase held and merkle_levels at the batch's largest tree, then
+     StarkGuestProver().prove_batch on the card (launch counters reset just
+     before and read just after; stage seconds, peak device memory, proof
+     bytes).  c02f_x2's proof must hash to BATCH_PROOF_SHA256 (the port's
+     CPU proof, scripts/session_proof_cpu.py --batch c02f_x2).
+     verify_batch must reject each batch proof exactly where the JAX
+     package's verify_batch rejects the same bytes, at StreamParserAir's
+     constraint identity (PARSER_FAULT: the reference's AIR admits no
+     trace of a second session's parser region), after the bus balance
+     and the identities of the larger chips passed; a journal batch with a
+     changed filtered byte in the second (c02f_x2) or fifth (c02f_x8)
+     session must fail earlier, at the global bus balance;
+ 10. one JSON line describing each kernel (launches: the c02f_x8 batch's
+     prove; permute: the grinding path's, its one caller; every path's
+     launches under "launches_by_path");
+ 11. last line: {"ok": true, "device": {...}}.
 
-Needs one card, nvcc (/usr/local/cuda) and no network.
+`--only` runs phases 1-3 and the named paths of sha, sessions,
+preprocessed, c02f_x2, c02f_x8 (a check while working on one of them; it
+prints neither the kernels line nor the result).  Needs one card, nvcc
+(/usr/local/cuda), a C compiler and no network.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import hashlib
 import json
@@ -83,6 +113,20 @@ SESSION_PROOF_SHA256 = {
     "1303":
     "45f02303ff4510ae74ee32a69f0e2cb03f652f886f6e37eede640756cea100c4",
 }
+#: SHA-256 of the port's DEFAULT_CONFIG proof of a batch on the CPU
+#: (python scripts/session_proof_cpu.py --batch NAME)
+BATCH_PROOF_SHA256 = {
+    "c02f_x2":
+    "4d0290f470e8c5bd746c870d0e2873a62f99ccadb1e18eaa3430910141470a5c",
+}
+#: where both packages' verify_batch reject a batch proof: the
+#: reference's StreamParserAir resets its byte counter to 0 at a region
+#: start (zktls_tpu/stark/chips/stream_parser.py:276), while its first-row
+#: rule and region-end length check count the region's first byte, so no
+#: trace of a second session's region satisfies it
+PARSER_FAULT = "StreamParserAir: constraint identity failed at zeta"
+#: the optional paths, in the order they run
+PATHS = ("sha", "sessions", "preprocessed", "c02f_x2", "c02f_x8")
 
 
 def _nvidia_smi(fields: str) -> str:
@@ -116,7 +160,22 @@ def _time_ms(fn, reps: int, runs: int = 5) -> float:
     return statistics.median(times)
 
 
+def _tamper_filtered(journal: bytes) -> tuple[bytes, int]:
+    """The journal with its first filtered byte flipped (the ABI's bytes[]
+    at head word 13), and that byte's offset."""
+    off = int.from_bytes(journal[13 * 32 : 14 * 32], "big")
+    rel = int.from_bytes(journal[off + 32 : off + 64], "big")
+    pos = off + 32 + rel + 32
+    return journal[:pos] + bytes([journal[pos] ^ 1]) + journal[pos + 1 :], pos
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", type=lambda v: v.split(","), default=None,
+                    help=f"comma-separated paths of {', '.join(PATHS)}")
+    args = ap.parse_args()
+    paths = PATHS if args.only is None else tuple(args.only)
+    _require(set(paths) <= set(PATHS), f"unknown paths {paths}")
     import torch
 
     if not torch.cuda.is_available():
@@ -141,12 +200,22 @@ def main() -> int:
     from zktls_tpu_torch.guest import roots
     from zktls_tpu_torch.guest.program import run_guest
     from zktls_tpu_torch.guest.replay import ReplayError
+    from zktls_tpu_torch.models.fibonacci import FibonacciAir
     from zktls_tpu_torch.provers.stark import (
         StarkGuestProver,
         build_chip_instances,
+        merge_guest_outputs,
     )
+    from zktls_tpu_torch.stark.machine import preprocessed_root
     from zktls_tpu_torch.stark.verifier import VerificationError
-    from zktls_tpu_torch.workload import SESSIONS, sha_machine
+    from zktls_tpu_torch.utils import native
+    from zktls_tpu_torch.workload import (
+        BATCHES,
+        SESSIONS,
+        FixedMulAir,
+        preprocessed_machine,
+        sha_machine,
+    )
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -163,6 +232,22 @@ def main() -> int:
             if "Used" in line and "registers" in line]
     print(f"build: poseidon2.cu {time.perf_counter() - t0:.2f} s; "
           f"ptxas: {regs}")
+    t0 = time.perf_counter()
+    lib_path, _ = native.build()
+    build_s = time.perf_counter() - t0
+    host_rng = np.random.default_rng(SEED + 1)
+    for width in (16, 24):
+        states = host_rng.integers(0, bb.P, (256, width), dtype=np.uint32)
+        states[0], states[1] = 0, bb.P - 1
+        got = native.permute_batch(states, width=width)
+        plain = p2.Poseidon2(width, native=False)
+        for row, out in zip(states, got):
+            _require([int(x) for x in out] ==
+                     plain.permute_ints([int(x) for x in row]),
+                     f"host Poseidon2 != plain at width {width}")
+    print(f"build: poseidon2_host.c {build_s:.2f} s -> {lib_path.name}; "
+          "host permute_batch == pure-Python plain at widths 16/24 on 256 "
+          "seeded states each (0 and p - 1 among them)")
 
     # 3. each entry point against its plain version on the card
     rng = np.random.default_rng(SEED)
@@ -222,30 +307,7 @@ def main() -> int:
         else:
             raise RuntimeError("run_guest accepted a chain that anchors to "
                                "no root of the store")
-        shapes = []
-        for c in chips:
-            lde_rows = c.trace.shape[0] << DEFAULT_CONFIG.log_blowup
-            shapes += [(c.air.name, "trace", lde_rows, c.air.width),
-                       (c.air.name, "perm", lde_rows, c.air.perm_width)]
-        for chip, what, n, w in shapes:
-            if (n, w) in covered:
-                continue
-            covered.add((n, w))
-            rows = rand_field(n, w)
-            err = abs_err(mk.hash_rows(rows), mk.hash_rows_plain(rows))
-            errs["hash_rows"] = max(errs["hash_rows"], err)
-            _require(err == 0, f"hash_rows != plain at ({n}, {w})")
-            print(f"{tag} kernel: hash_rows == plain at ({n}, {w}), {chip} "
-                  f"{what} LDE, max abs err {err}")
-            del rows
-        n_tree = max(n for _, _, n, _ in shapes)
-        leaves = rand_field(n_tree, mk.DIGEST_WIDTH)
-        err = abs_err(mk.tree_levels(leaves), mk.tree_levels_plain(leaves))
-        errs["merkle_levels"] = max(errs["merkle_levels"], err)
-        _require(err == 0, f"merkle_levels != plain at N={n_tree}")
-        print(f"{tag} kernel: merkle_levels == plain, every level, at "
-              f"N={n_tree} (the session's largest tree), max abs err {err}")
-        del leaves
+        hold_k1_at(tag, lde_shapes(chips), covered)
 
         # the main path, StarkGuestProver.prove, through K1.  The loopback
         # certificate is self-signed, so the leaf's SPKI hash joins the
@@ -304,11 +366,7 @@ def main() -> int:
                  f"{tag} StarkGuestProver rejected the proof")
         verify_s = time.perf_counter() - t0
         print(f"{tag} StarkGuestProver.verify {verify_s:.2f} s")
-        # flip the first filtered byte (the ABI's bytes[] at head word 13)
-        off = int.from_bytes(journal[13 * 32 : 14 * 32], "big")
-        rel = int.from_bytes(journal[off + 32 : off + 64], "big")
-        pos = off + 32 + rel + 32
-        bad = journal[:pos] + bytes([journal[pos] ^ 1]) + journal[pos + 1 :]
+        bad, pos = _tamper_filtered(journal)
         t0 = time.perf_counter()
         try:
             StarkGuestProver().verify(bad, blob)
@@ -321,6 +379,127 @@ def main() -> int:
             raise RuntimeError(f"{tag} the proof verified against a "
                                "tampered journal")
         return warm_launches
+
+    def hold_k1_at(tag: str, shapes: list, covered: set) -> None:
+        """hash_rows == plain at each (chip, what, rows, width) not yet
+        covered, and merkle_levels == plain at the largest tree."""
+        for chip, what, n, w in shapes:
+            if (n, w) in covered:
+                continue
+            covered.add((n, w))
+            rows = rand_field(n, w)
+            err = abs_err(mk.hash_rows(rows), mk.hash_rows_plain(rows))
+            errs["hash_rows"] = max(errs["hash_rows"], err)
+            _require(err == 0, f"hash_rows != plain at ({n}, {w})")
+            print(f"{tag} kernel: hash_rows == plain at ({n}, {w}), {chip} "
+                  f"{what} LDE, max abs err {err}")
+            del rows
+        n_tree = max(n for _, _, n, _ in shapes)
+        if ("tree", n_tree) in covered:
+            return
+        covered.add(("tree", n_tree))
+        leaves = rand_field(n_tree, mk.DIGEST_WIDTH)
+        err = abs_err(mk.tree_levels(leaves), mk.tree_levels_plain(leaves))
+        errs["merkle_levels"] = max(errs["merkle_levels"], err)
+        _require(err == 0, f"merkle_levels != plain at N={n_tree}")
+        print(f"{tag} kernel: merkle_levels == plain, every level, at "
+              f"N={n_tree} (the largest tree), max abs err {err}")
+
+    def lde_shapes(chips) -> list:
+        shapes = []
+        for c in chips:
+            lde_rows = c.trace.shape[0] << DEFAULT_CONFIG.log_blowup
+            shapes += [(c.air.name, "trace", lde_rows, c.air.width),
+                       (c.air.name, "perm", lde_rows, c.air.perm_width)]
+        return [sh for sh in shapes if sh[3]]
+
+    def batch_path(name: str, covered: set, tamper: int) -> dict:
+        """Phase 9 for one batch; returns the K1 launches of its prove."""
+        spec = BATCHES[name]
+        tag = f"batch {name}:"
+        inputs = [GuestInput.from_cbor(SESSIONS[s].guest_input.read_bytes())
+                  for s in spec.sessions]
+        t0 = time.perf_counter()
+        outs = [run_guest(gi, require_trust_anchor=False) for gi in inputs]
+        replay_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        chips = build_chip_instances(merge_guest_outputs(outs))
+        build_s = time.perf_counter() - t0
+        got = tuple((c.air.name, *c.trace.shape, c.air.perm_width)
+                    for c in chips)
+        _require(got == spec.chips, f"{tag} the chips are {got}")
+        cells = sum(c.trace.size for c in chips)
+        print(f"{tag} {len(inputs)} sessions, run_guest "
+              f"{replay_s:.2f} s; merge_guest_outputs + build_chip_instances "
+              f"{build_s:.2f} s: {cells} trace cells, " + ", ".join(
+                  f"{c.air.name} {c.trace.shape[0]}x{c.trace.shape[1]}"
+                  for c in chips))
+        hold_k1_at(tag, lde_shapes(chips), covered)
+        del chips, outs
+        store = roots.anchor_spki_hashes() | {
+            bytes.fromhex(SESSIONS[s].chain["root_spki_sha256"])
+            for s in spec.sessions}
+        with mock.patch.object(roots, "anchor_spki_hashes", lambda: store):
+            torch.cuda.reset_peak_memory_stats(dev)
+            timings: dict = {}
+            k1.reset_launches()
+            p2.plain_calls = 0
+            t0 = time.perf_counter()
+            journals, blob = StarkGuestProver().prove_batch(
+                inputs, timings=timings)
+            torch.cuda.synchronize(dev)
+            prove_s = time.perf_counter() - t0
+            launches = dict(k1.launches)
+            plain = p2.plain_calls
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        for entry in ("hash_rows", "merkle_levels"):
+            _require(launches[entry] > 0,
+                     f"{tag} the prove launched {entry} no time")
+        _require(plain == 0, f"{tag} the prove ran the plain Poseidon2")
+        digest = hashlib.sha256(blob).hexdigest()
+        print(f"{tag} StarkGuestProver.prove_batch {prove_s:.2f} s = "
+              f"run_guest {timings['run_guest']:.2f} + merge_guest_outputs "
+              f"+ build_chip_instances {timings['build_chip_instances']:.2f}"
+              f" + prove_machine {sum(timings[k] for k in STAGES):.2f}")
+        print(f"{tag} stages " + ", ".join(
+            f"{k} {timings[k]:.3f}" for k in STAGES)
+            + f"; peak device memory {peak:.2f} GiB; proof {len(blob)} "
+            f"bytes, sha256 {digest}; K1 launches {launches}, total "
+            f"{sum(launches.values())}, plain calls {plain}")
+        if name in BATCH_PROOF_SHA256:
+            _require(digest == BATCH_PROOF_SHA256[name],
+                     f"{tag} the card's proof differs from the CPU proof's "
+                     "digest")
+            print(f"{tag} proof == the CPU proof's digest")
+        t0 = time.perf_counter()
+        try:
+            StarkGuestProver().verify_batch(journals, blob)
+        except VerificationError as e:
+            _require(str(e) == PARSER_FAULT,
+                     f"{tag} verify_batch rejected the proof at {e}")
+            print(f"{tag} StarkGuestProver.verify_batch "
+                  f"{time.perf_counter() - t0:.2f} s: rejected at the "
+                  f"reference's StreamParserAir identity ({e}), every "
+                  "check before it passed")
+        else:
+            raise RuntimeError(f"{tag} verify_batch accepted a proof the "
+                               "JAX package's verify_batch rejects")
+        bad, pos = _tamper_filtered(journals[tamper])
+        bad_journals = journals[:tamper] + [bad] + journals[tamper + 1:]
+        t0 = time.perf_counter()
+        try:
+            StarkGuestProver().verify_batch(bad_journals, blob)
+        except VerificationError as e:
+            _require(str(e) == "global bus imbalance",
+                     f"{tag} the tampered batch failed at {e}")
+            print(f"{tag} journals with filtered byte {pos} of session "
+                  f"{tamper + 1} changed rejected at the bus balance in "
+                  f"{time.perf_counter() - t0:.2f} s ({e}); total "
+                  f"{time.perf_counter() - t_start:.1f} s")
+        else:
+            raise RuntimeError(f"{tag} a tampered batch passed")
+        return launches
+
     for width in (16, 24):
         for n in (1, 511, 513, 131072):
             x = rand_field(n, width)
@@ -397,84 +576,144 @@ def main() -> int:
     print("kernel: no single PyTorch call computes Poseidon2, a sponge or a "
           "tree over it: library_ms null")
 
-    # 4. the main path, through K1
-    inst, msgs = sha_machine(MAIN_MESSAGES, MAIN_BYTES, SEED)
-    _require(inst.trace.shape == (32768, 639),
-             f"main trace is {inst.trace.shape}, want (32768, 639)")
-    binding = b"chip-smoke sha256 machine"
-    torch.cuda.reset_peak_memory_stats(dev)
-    timings: dict = {}
-    k1.reset_launches()
-    p2.plain_calls = 0
-    t0 = time.perf_counter()
-    proof = prove_machine([inst], binding, DEFAULT_CONFIG, device=dev,
-                          timings=timings)
-    torch.cuda.synchronize(dev)
-    prove_s = time.perf_counter() - t0
-    launches, plain_calls = dict(k1.launches), p2.plain_calls
-    for name in ("hash_rows", "merkle_levels"):
-        _require(launches[name] > 0, f"the main path launched {name} no time")
-    _require(plain_calls == 0, "the main path ran the plain Poseidon2")
-    blob = proof.to_bytes()
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    print("main: Sha256Air 32768x639 DEFAULT_CONFIG prove "
-          f"{prove_s:.2f} s; stages " + ", ".join(
-              f"{k} {timings[k]:.3f}" for k in STAGES)
-          + f"; proof {len(blob)} bytes; K1 launches {launches}, total "
-          f"{sum(launches.values())}, plain calls {plain_calls}; peak device "
-          f"memory {peak_gib:.2f} GiB")
-    t0 = time.perf_counter()
-    _require(verify_machine([Sha256Air()], MachineProof.from_bytes(blob),
-                            binding, msgs, DEFAULT_CONFIG),
-             "verifier rejected the main proof")
-    verify_s = time.perf_counter() - t0
-    tag, payload, mult = msgs[0]
-    bad = [(tag, payload[:1] + [(payload[1] + 1) % 65536] + payload[2:],
-            mult)] + msgs[1:]
-    try:
-        verify_machine([Sha256Air()], MachineProof.from_bytes(blob), binding,
-                       bad, DEFAULT_CONFIG)
-    except VerificationError as e:
-        print(f"main: verify {verify_s:.2f} s ok; tampered digest limb "
-              f"rejected ({e})")
-    else:
-        raise RuntimeError("verifier accepted a tampered digest limb")
+    def sha_path() -> dict:
+        """Phases 4 and 5; returns the K1 launches of the Sha256Air prove
+        and of the grinding prove."""
+        # 4. the main path, through K1
+        inst, msgs = sha_machine(MAIN_MESSAGES, MAIN_BYTES, SEED)
+        _require(inst.trace.shape == (32768, 639),
+                 f"main trace is {inst.trace.shape}, want (32768, 639)")
+        binding = b"chip-smoke sha256 machine"
+        torch.cuda.reset_peak_memory_stats(dev)
+        timings: dict = {}
+        k1.reset_launches()
+        p2.plain_calls = 0
+        t0 = time.perf_counter()
+        proof = prove_machine([inst], binding, DEFAULT_CONFIG, device=dev,
+                              timings=timings)
+        torch.cuda.synchronize(dev)
+        prove_s = time.perf_counter() - t0
+        launches, plain_calls = dict(k1.launches), p2.plain_calls
+        for name in ("hash_rows", "merkle_levels"):
+            _require(launches[name] > 0, f"the main path launched {name} no time")
+        _require(plain_calls == 0, "the main path ran the plain Poseidon2")
+        blob = proof.to_bytes()
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        print("main: Sha256Air 32768x639 DEFAULT_CONFIG prove "
+              f"{prove_s:.2f} s; stages " + ", ".join(
+                  f"{k} {timings[k]:.3f}" for k in STAGES)
+              + f"; proof {len(blob)} bytes; K1 launches {launches}, total "
+              f"{sum(launches.values())}, plain calls {plain_calls}; peak device "
+              f"memory {peak_gib:.2f} GiB")
+        t0 = time.perf_counter()
+        _require(verify_machine([Sha256Air()], MachineProof.from_bytes(blob),
+                                binding, msgs, DEFAULT_CONFIG),
+                 "verifier rejected the main proof")
+        verify_s = time.perf_counter() - t0
+        tag, payload, mult = msgs[0]
+        bad = [(tag, payload[:1] + [(payload[1] + 1) % 65536] + payload[2:],
+                mult)] + msgs[1:]
+        try:
+            verify_machine([Sha256Air()], MachineProof.from_bytes(blob), binding,
+                           bad, DEFAULT_CONFIG)
+        except VerificationError as e:
+            print(f"main: verify {verify_s:.2f} s ok; tampered digest limb "
+                  f"rejected ({e})")
+        else:
+            raise RuntimeError("verifier accepted a tampered digest limb")
 
-    # 5. card vs CPU at 256 rows
-    small, small_msgs = sha_machine(2, 100, SEED)
-    _require(small.trace.shape == (256, 639), "small trace shape")
-    on_card = prove_machine([small], binding, DEFAULT_CONFIG,
-                            device=dev).to_bytes()
-    on_cpu = prove_machine([small], binding, DEFAULT_CONFIG,
-                           device="cpu").to_bytes()
-    _require(on_card == on_cpu, "card and CPU proofs differ at 256 rows")
-    print(f"path: 256-row proof identical on card and CPU "
-          f"({len(on_card)} bytes)")
-    grind_config = dataclasses.replace(DEFAULT_CONFIG, pow_bits=8)
-    k1.reset_launches()
-    p2.plain_calls = 0
-    ground = prove_machine([small], binding, grind_config, device=dev)
-    launches["permute"] = k1.launches["permute"]
-    _require(launches["permute"] > 0, "grinding launched permute no time")
-    _require(p2.plain_calls == 0, "grinding ran the plain Poseidon2")
-    _require(verify_machine([Sha256Air()],
-                            MachineProof.from_bytes(ground.to_bytes()),
-                            binding, small_msgs, grind_config),
-             "verifier rejected the ground proof")
-    print(f"path: 256-row prove with 8 grinding bits verified, permute "
-          f"launches {launches['permute']} (witness {ground.pow_witness}); "
-          f"total {time.perf_counter() - t_start:.1f} s")
+        # 5. card vs CPU at 256 rows
+        small, small_msgs = sha_machine(2, 100, SEED)
+        _require(small.trace.shape == (256, 639), "small trace shape")
+        on_card = prove_machine([small], binding, DEFAULT_CONFIG,
+                                device=dev).to_bytes()
+        on_cpu = prove_machine([small], binding, DEFAULT_CONFIG,
+                               device="cpu").to_bytes()
+        _require(on_card == on_cpu, "card and CPU proofs differ at 256 rows")
+        print(f"path: 256-row proof identical on card and CPU "
+              f"({len(on_card)} bytes)")
+        grind_config = dataclasses.replace(DEFAULT_CONFIG, pow_bits=8)
+        k1.reset_launches()
+        p2.plain_calls = 0
+        ground = prove_machine([small], binding, grind_config, device=dev)
+        grinding = {"permute": k1.launches["permute"]}
+        _require(grinding["permute"] > 0, "grinding launched permute no time")
+        _require(p2.plain_calls == 0, "grinding ran the plain Poseidon2")
+        _require(verify_machine([Sha256Air()],
+                                MachineProof.from_bytes(ground.to_bytes()),
+                                binding, small_msgs, grind_config),
+                 "verifier rejected the ground proof")
+        print(f"path: 256-row prove with 8 grinding bits verified, permute "
+              f"launches {grinding['permute']} (witness {ground.pow_witness}); "
+              f"total {time.perf_counter() - t_start:.1f} s")
+        return {"sha": launches, "grinding": grinding}
 
-    # 6.-7. each committed session: replayed from its GuestInput, its chips
-    # built and K1 held against plain at their shapes, then the main path
-    # StarkGuestProver.prove on the card
+    def preprocessed_path() -> None:
+        """Phase 8: a machine with a preprocessed commit, on the card and
+        the CPU, and with host spill and chunked DEEP forced."""
+        log_n = 14
+        chips, pre = preprocessed_machine(log_n)
+        binding = b"chip-smoke preprocessed machine"
+        t0 = time.perf_counter()
+        on_card = prove_machine(chips, binding, DEFAULT_CONFIG,
+                                device=dev).to_bytes()
+        card_s = time.perf_counter() - t0
+        on_cpu = prove_machine(chips, binding, DEFAULT_CONFIG,
+                               device="cpu").to_bytes()
+        _require(on_card == on_cpu,
+                 "preprocessed machine: card and CPU proofs differ")
+        root = preprocessed_root(FixedMulAir(), pre, log_n, log_n,
+                                 DEFAULT_CONFIG, device=dev)
+        _require(verify_machine([FixedMulAir(), FibonacciAir()],
+                                MachineProof.from_bytes(on_card), binding,
+                                config=DEFAULT_CONFIG,
+                                preprocessed_roots={"FixedMulAir": root}),
+                 "preprocessed machine: the verifier rejected the proof")
+        try:
+            verify_machine([FixedMulAir(), FibonacciAir()],
+                           MachineProof.from_bytes(on_card), binding,
+                           config=DEFAULT_CONFIG)
+        except VerificationError as e:
+            missing = str(e)
+        else:
+            raise RuntimeError("preprocessed machine: verified without its "
+                               "vk root")
+        forced = prove_machine(chips, binding, DEFAULT_CONFIG, device=dev,
+                               spill_bytes=0,
+                               chunked_deep_bytes=0).to_bytes()
+        _require(forced == on_card, "preprocessed machine: spill and "
+                 "chunked DEEP changed the proof bytes")
+        print(f"preprocessed: FixedMulAir {1 << log_n}x2 (+2 preprocessed) "
+              f"beside FibonacciAir {1 << (log_n - 1)}x2, card prove "
+              f"{card_s:.2f} s, {len(on_card)} bytes == the CPU proof; "
+              f"verified with the vk root; without it rejected ({missing}); "
+              "spill_bytes=0, chunked_deep_bytes=0 give the same bytes")
+
+    launches_by_path = {}
+    if "sha" in paths:
+        launches_by_path.update(sha_path())
     covered = {(4096, 639), (n_main, w_main), (131072, 16)}
-    session_launches = {name: session_path(name, covered)
-                        for name in ("c02f", "1302", "1303")}
-    for name in ("hash_rows", "merkle_levels"):
-        launches[name] = session_launches["c02f"][name]
+    if "sessions" in paths:
+        # 6.-7. each committed session: replayed from its GuestInput, its
+        # chips built and K1 held against plain at their shapes, then the
+        # main path StarkGuestProver.prove on the card
+        for name in ("c02f", "1302", "1303"):
+            launches_by_path[name] = session_path(name, covered)
+    if "preprocessed" in paths:
+        preprocessed_path()
+    # 9. the batches; c02f_x8 is the slice's full-width path
+    for name, tamper in (("c02f_x2", 1), ("c02f_x8", 4)):
+        if name in paths:
+            launches_by_path[name] = batch_path(name, covered, tamper)
+    if args.only is not None:
+        print(f"--only {','.join(paths)}: done in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    launches = {"permute": launches_by_path["grinding"]["permute"],
+                **{k: launches_by_path["c02f_x8"][k]
+                   for k in ("hash_rows", "merkle_levels")}}
 
-    # 8. kernels (launches: the c02f session's warm prove; permute: the
+    # 10. kernels (launches: the c02f_x8 batch's prove; permute: the
     # grinding path's, its one caller)
     print(json.dumps({"kernels": [{
         "name": f"poseidon2_{name}",
@@ -482,6 +721,9 @@ def main() -> int:
         "source": "zktls_tpu_torch/csrc/poseidon2.cu",
         "replaces": "zktls_tpu/ops/pallas_poseidon2.py:107",
         "launches": launches[name],
+        "launches_by_path": {path: got[name]
+                             for path, got in launches_by_path.items()
+                             if name in got},
         "max_abs_err": errs[name],
         "ms": ms,
         "plain_ms": plain_ms,
@@ -489,7 +731,7 @@ def main() -> int:
         "bound_by": b["bound_by"],
         "library_ms": None,
     } for name, (_, ms, plain_ms, b) in timed.items()]}))
-    # 9. result
+    # 11. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
-"""Prove a recorded session's machine with the PyTorch port on the CPU, and
-check the proof with both packages' verifiers.
+"""Prove a recorded session's machine (or a batch of sessions) with the
+PyTorch port on the CPU, and check the proof with both packages' verifiers.
 
     JAX_PLATFORMS=cpu python scripts/session_proof_cpu.py [--session 1302]
+    JAX_PLATFORMS=cpu python scripts/session_proof_cpu.py --batch c02f_x2
 
 Replays the session's committed GuestInput (`--session`: c02f, the
 default, 1302 or 1303; `zktls_tpu_torch.workload.SESSIONS`) with the
@@ -11,8 +12,16 @@ port's `run_guest` and builds its chips
 writes the proof to `build/session_<session>.cpu.proof` (or `--out`),
 prints its SHA-256 (the digest `chip_smoke.py` holds the card's proof to),
 and verifies it with the port's `StarkGuestProver(device="cpu").verify`
-and with the JAX package's (unless `--no-reference`).  Prints the
+and with the JAX package's (unless `--no-reference`), printing each
+verifier's outcome; it exits non-zero when the two disagree or reject a
+session proof.  Prints the
 process's peak resident memory (11–15 GiB for 1302, 8.4 GiB for 1303).
+`--batch NAME` (`zktls_tpu_torch.workload.BATCHES`) proves the batch's
+merged chips (`workload.batch_machine`) bound to the concatenated journals
+instead, writes `build/batch_<batch>.cpu.proof`, and checks it with both
+packages' `StarkGuestProver.verify_batch`.  Both reject a batch proof at
+StreamParserAir's constraint identity: the reference's AIR admits no trace
+of a second session's parser region (tests/test_torch_batch.py).
 `--no-reference --out PROOF` proves on a host without the JAX package, such
 as the card machine's, and keeps the proof where the caller wants it.
 """
@@ -36,6 +45,8 @@ def main() -> None:
     ap.add_argument("--session", default="c02f",
                     choices=("c02f", "1302", "1303"),
                     help="the committed session to prove (default c02f)")
+    ap.add_argument("--batch", choices=("c02f_x2", "c02f_x8"),
+                    help="prove this batch of committed sessions instead")
     ap.add_argument("--threads", type=int, default=8,
                     help="torch CPU threads (default 8)")
     ap.add_argument("--out", type=pathlib.Path,
@@ -45,18 +56,24 @@ def main() -> None:
                     help="skip the JAX package's verifier (on a machine "
                          "without JAX)")
     args = ap.parse_args()
-    out = args.out or BUILD / f"session_{args.session}.cpu.proof"
+    what = (f"batch_{args.batch}" if args.batch
+            else f"session_{args.session}")
+    out = args.out or BUILD / f"{what}.cpu.proof"
 
     import torch
 
     from zktls_tpu_torch.provers.stark import StarkGuestProver
     from zktls_tpu_torch.stark.config import DEFAULT_CONFIG
     from zktls_tpu_torch.stark.machine import STAGES, prove_machine
-    from zktls_tpu_torch.workload import session_machine
+    from zktls_tpu_torch.workload import batch_machine, session_machine
 
     torch.set_num_threads(args.threads)
     t0 = time.perf_counter()
-    chips, journal = session_machine(args.session)
+    if args.batch:
+        chips, journals = batch_machine(args.batch)
+        journal = b"".join(journals)
+    else:
+        chips, journal = session_machine(args.session)
     print(f"run_guest + build_chip_instances "
           f"{time.perf_counter() - t0:.2f} s: "
           + ", ".join(f"{c.air.name} {c.trace.shape[0]}x{c.trace.shape[1]}"
@@ -73,21 +90,35 @@ def main() -> None:
     print(f"proof {len(blob)} bytes, sha256 {hashlib.sha256(blob).hexdigest()}"
           f" -> {out}")
 
-    t0 = time.perf_counter()
-    # raises VerificationError
-    StarkGuestProver(device="cpu").verify(journal, blob)
-    print(f"port StarkGuestProver.verify: ok ({time.perf_counter() - t0:.1f}"
-          " s)")
+    def check(prover, label) -> str:
+        """The verifier's outcome: "ok", or the reason it rejected."""
+        t0 = time.perf_counter()
+        try:
+            if args.batch:
+                prover.verify_batch(journals, blob)
+            else:
+                prover.verify(journal, blob)
+            outcome = "ok"
+        except Exception as exc:  # each package's VerificationError
+            if type(exc).__name__ != "VerificationError":
+                raise
+            outcome = f"rejected: {exc}"
+        print(f"{label}.{'verify_batch' if args.batch else 'verify'}: "
+              f"{outcome} ({time.perf_counter() - t0:.1f} s)")
+        return outcome
+
+    outcomes = [check(StarkGuestProver(device="cpu"), "port StarkGuestProver")]
     if not args.no_reference:
         from zktls_tpu.provers.stark import StarkGuestProver as JaxProver
 
-        t0 = time.perf_counter()
-        JaxProver().verify(journal, blob)  # raises VerificationError
-        print(f"JAX package StarkGuestProver.verify: ok "
-              f"({time.perf_counter() - t0:.1f} s)")
+        outcomes.append(check(JaxProver(), "JAX package StarkGuestProver"))
     print(f"peak resident memory "
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}"
           " GiB")
+    if len(set(outcomes)) != 1:
+        sys.exit("the two packages' verifiers disagree")
+    if not args.batch and outcomes[0] != "ok":
+        sys.exit("the session proof was rejected")
 
 
 if __name__ == "__main__":

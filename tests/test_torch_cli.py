@@ -223,3 +223,25 @@ def test_cli_replays_without_jax_or_cryptography(request_json):
                          capture_output=True, text=True, timeout=300)
     assert res.stdout.strip() == "1 []", res.stdout + res.stderr
     assert "does not anchor" in res.stderr
+
+
+def test_native_and_batch_path_without_jax_or_cryptography():
+    """The host Poseidon2 library and the batch path (two sessions' replays,
+    merge_guest_outputs, build_chip_instances, batch_public_messages) in a
+    process of their own import no module of jax, zktls_tpu or
+    cryptography."""
+    code = (
+        "import sys\n"
+        "from zktls_tpu_torch.ops.poseidon2 import Poseidon2\n"
+        "from zktls_tpu_torch.provers import stark\n"
+        "from zktls_tpu_torch.workload import batch_machine\n"
+        "assert len(Poseidon2(24).permute_ints(list(range(24)))) == 24\n"
+        "chips, journals = batch_machine('c02f_x2')\n"
+        "msgs = stark.batch_public_messages(journals)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'zktls_tpu', 'cryptography'))\n"
+        "print(len(chips), len(journals), bool(msgs), bad)\n")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert res.stdout.strip() == "12 2 True []", res.stdout + res.stderr

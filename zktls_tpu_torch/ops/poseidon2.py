@@ -10,9 +10,12 @@ Counterpart of zktls_tpu.ops.poseidon2, with the same parameters
     by M_I = J + diag(d);
   * RF = 8, RP = 13 (width 16) / 21 (width 24).
 
-Three implementations of one function:
+Four implementations of one function:
   * `Poseidon2.permute_ints` — host scalar (plain ints), for the
-    challenger and the verifier;
+    challenger and the verifier: the C library of utils/native.py
+    (csrc/poseidon2_host.c), as the reference routes it through
+    native/poseidon2.c; `Poseidon2(width, native=False)` takes the
+    pure-Python `permute_ints_plain` instead;
   * `permute_batch_plain` — plain torch over (N, width) Montgomery
     tensors, the reference the hand-written kernel is held against;
   * `permute_batch` — the entry point: on a CUDA tensor it launches the
@@ -113,13 +116,25 @@ def _external_matrix(s: list[int]) -> list[int]:
 
 
 class Poseidon2:
-    """Host-side scalar Poseidon2 over plain-form ints (pure Python; the
-    S-box is `pow(x, 7, P)`)."""
+    """Host-side scalar Poseidon2 over plain-form ints: the C library
+    (built at first use; a failed build raises) unless `native=False`,
+    which takes the pure-Python plain version."""
 
-    def __init__(self, width: int = 16):
+    def __init__(self, width: int = 16, native: bool = True):
         self.params = get_params(width)
+        self.native = native
 
     def permute_ints(self, state: list[int]) -> list[int]:
+        if not self.native:
+            return self.permute_ints_plain(state)
+        if len(state) != self.params.width:
+            raise ValueError(f"state width must be {self.params.width}")
+        from ..utils import native
+
+        return native.permute_ints(state)
+
+    def permute_ints_plain(self, state: list[int]) -> list[int]:
+        """The permutation in pure Python (the S-box is `pow(x, 7, P)`)."""
         p = self.params
         if len(state) != p.width:
             raise ValueError(f"state width must be {p.width}")

@@ -1,27 +1,38 @@
 """Where the time of one prove goes, on the card.
 
-    python3 -m zktls_tpu_torch.profile_prove [--workload sha|c02f|1302|1303]
+    python3 -m zktls_tpu_torch.profile_prove [--workload sha|c02f|1302|1303|
+        c02f_x2|c02f_x8] [--spill-bytes B] [--chunked-deep-bytes B]
+        [--profiler torch|cprofile|none]
 
 Proves a machine at DEFAULT_CONFIG three times — `sha` (the default): the
 32768 × 639 Sha256Air machine of chip_smoke.py's first path; `c02f` (or
 `session`), `1302`, `1303`: the machine of that recorded TLS session in
-data/ (`workload.SESSIONS`), bound to its journal — cold (first use: kernel
-build, constraint lowering, host tables), warm with per-stage seconds, and
-warm under torch.profiler.  Prints one JSON line: the card, the cold and
-warm wall seconds, the warm stages, the profiled prove's wall and summed
+data/ (`workload.SESSIONS`), bound to its journal; `c02f_x2`, `c02f_x8`:
+the merged machine of that batch (`workload.BATCHES`), bound to its
+journals — cold (first use: kernel build, constraint lowering, host
+tables), warm with per-stage seconds, and warm under torch.profiler, each
+with `prove_machine`'s host-spill and chunked-DEEP limits as given
+(default: the module's; `--profiler cprofile` profiles the third prove's
+host Python with cProfile instead, `none` skips it).  Prints one JSON
+line: the card, the cold and
+warm wall seconds and peak device memory, the warm stages, the profiled
+prove's wall and summed
 device seconds (their ratio is the device-busy share: the port runs on one
 stream, so device activities do not overlap), device ms and launches of
 each Poseidon2 entry point (permute, hash_rows, merkle_levels) and their
 sum beside the least time the card could take for the same permutations
 (in all, and for the leaf sponges and the tree compressions apart),
 device time by kind of activity (torch elementwise kernels, `cat`, copies,
-…), and the top activities.
+…), and the top activities; with cprofile, the third prove's wall and
+the host functions that took the most time in themselves.
 """
 
 from __future__ import annotations
 
 import argparse
+import cProfile
 import json
+import pstats
 import subprocess
 import sys
 import time
@@ -31,8 +42,19 @@ import torch
 from .ops import cuda_poseidon2
 from .ops.merkle import LEAF_RATE
 from .stark.config import DEFAULT_CONFIG
-from .stark.machine import STAGES, prove_machine
-from .workload import SESSIONS, session_machine, sha_machine
+from .stark.machine import (
+    CHUNKED_DEEP_BYTES,
+    SPILL_BYTES,
+    STAGES,
+    prove_machine,
+)
+from .workload import (
+    BATCHES,
+    SESSIONS,
+    batch_machine,
+    session_machine,
+    sha_machine,
+)
 
 SEED = 20261016
 
@@ -107,7 +129,19 @@ def _device_rows(prof) -> list[tuple[str, int, float]]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", default="sha",
-                    choices=("sha", "session", *SESSIONS))
+                    choices=("sha", "session", *SESSIONS, *BATCHES))
+    ap.add_argument("--spill-bytes", type=float, default=SPILL_BYTES,
+                    help="prove_machine's host-spill limit (default "
+                         f"{SPILL_BYTES:g})")
+    ap.add_argument("--chunked-deep-bytes", type=float,
+                    default=CHUNKED_DEEP_BYTES,
+                    help="prove_machine's chunked-DEEP limit (default "
+                         f"{CHUNKED_DEEP_BYTES:g})")
+    ap.add_argument("--profiler", default="torch",
+                    choices=("torch", "cprofile", "none"),
+                    help="how the third prove is profiled (default torch: "
+                         "device time; cprofile: host functions; none: no "
+                         "third prove)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
@@ -122,20 +156,56 @@ def main() -> int:
     if args.workload == "sha":
         inst, _ = sha_machine(8, 3000, SEED)
         chips, binding = [inst], b"chip-smoke sha256 machine"
+    elif args.workload in BATCHES:
+        chips, journals = batch_machine(args.workload)
+        binding = b"".join(journals)
     else:
         chips, binding = session_machine(
             "c02f" if args.workload == "session" else args.workload)
 
+    peaks = []
+
     def prove(timings=None):
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         prove_machine(chips, binding, DEFAULT_CONFIG, device=dev,
-                      timings=timings)
+                      timings=timings, spill_bytes=args.spill_bytes,
+                      chunked_deep_bytes=args.chunked_deep_bytes)
         torch.cuda.synchronize(dev)
+        peaks.append(torch.cuda.max_memory_allocated(dev) / 2**30)
         return time.perf_counter() - t0
 
     cold_s = prove()
     stages: dict = {}
     warm_s = prove(stages)
+    result = {
+        "card": card,
+        "workload": args.workload,
+        "traces": {c.air.name: list(c.trace.shape) for c in chips},
+        "spill_bytes": args.spill_bytes,
+        "chunked_deep_bytes": args.chunked_deep_bytes,
+        "cold_prove_s": cold_s,
+        "warm_prove_s": warm_s,
+        "peak_device_gib": {"cold": peaks[0], "warm": peaks[1]},
+        "warm_stages_s": {k: stages[k] for k in STAGES},
+    }
+    if args.profiler == "none":
+        print(json.dumps(result))
+        return 0
+    if args.profiler == "cprofile":
+        host = cProfile.Profile()
+        host.enable()
+        profiled_s = prove()
+        host.disable()
+        top = sorted(pstats.Stats(host).stats.items(),
+                     key=lambda kv: -kv[1][2])[:30]
+        print(json.dumps({**result, "profiled_prove_s": profiled_s,
+                          "host_top_self": [{
+                              "function": f"{f}:{line}({name})",
+                              "calls": calls, "self_s": tt, "cum_s": ct}
+                              for (f, line, name), (_, calls, tt, ct, _)
+                              in top]}))
+        return 0
     cuda_poseidon2.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -148,12 +218,7 @@ def main() -> int:
         [(c.trace.shape[0], c.air.width, c.air.perm_width) for c in chips],
         DEFAULT_CONFIG)
     print(json.dumps({
-        "card": card,
-        "workload": args.workload,
-        "traces": {c.air.name: list(c.trace.shape) for c in chips},
-        "cold_prove_s": cold_s,
-        "warm_prove_s": warm_s,
-        "warm_stages_s": {k: stages[k] for k in STAGES},
+        **result,
         "profiled_prove_s": profiled_s,
         "device_s": device_us / 1e6,
         "device_busy_share": device_us / 1e6 / profiled_s,

@@ -8,6 +8,15 @@ the CUDA card (or on the device the caller names).  Every suite the
 reference proves has its chips: AES-128/256-GCM with SHA-256 or SHA-384,
 and ChaCha20-Poly1305, over TLS 1.2 and TLS 1.3.
 
+Batches (`prove_batch` / `verify_batch`): several sessions' witnesses
+merged into one chip workload (`merge_guest_outputs`) and proved as ONE
+machine proof bound to the concatenated journals.  The merge is the
+reference's, limits included: it never merges `chacha_events` and builds
+the stream-binding inputs only for AES-GCM sessions, so a batch of
+ChaCha20-Poly1305 sessions keeps the first session's ChaCha blocks, loses
+its stream-binding chips and its bus does not balance — the reference
+cannot prove such a batch either.
+
 What `verify(journal, proof)` checks:
   * the proof transcript is bound to THIS journal (binding bytes);
   * the SHA-256 chip published the journal's own digest and the journal's
@@ -36,7 +45,8 @@ from ..stark.machine import (
 )
 
 __all__ = ["StarkGuestProver", "build_chip_instances",
-           "journal_public_messages", "journal_airs"]
+           "journal_public_messages", "journal_airs", "merge_guest_outputs",
+           "batch_public_messages"]
 
 
 def _filtered_multiplicities(journal: bytes, obj: int = 1) -> list[tuple]:
@@ -107,16 +117,25 @@ def _stream_chips(out, events, data_air, ks_xor_pairs: list,
         xor_use_counts,
     )
 
-    ptrace, _ = parser_trace([parser_sessions_from_replay(
-        out.stream, events, out.v13, obj=1)])
+    # a batch (merge_guest_outputs) presets the parser sessions, filtered
+    # multiplicities and keccak streams of all its sessions
+    sessions = getattr(out, "parser_sessions", None)
+    if sessions is None:
+        sessions = [parser_sessions_from_replay(out.stream, events, out.v13,
+                                                obj=1)]
+    ptrace, _ = parser_trace(sessions)
+    filtered = getattr(out, "filtered_mults", None)
+    if filtered is None:
+        filtered = _filtered_multiplicities(out.journal, obj=1)
     dtrace, _, xor_pairs = gcm_data_trace(
-        out.gcm_metas, events,
-        filtered=_filtered_multiplicities(out.journal, obj=1),
-        le_pairs=le_pairs)
+        out.gcm_metas, events, filtered=filtered, le_pairs=le_pairs)
     xtrace, _ = xor_table_trace(
         xor_use_counts(list(xor_pairs) + ks_xor_pairs))
-    ktrace, _ = keccak_trace([(1, 0, out.replay.request_plaintext),
-                              (1, 1, out.replay.response_plaintext)])
+    streams = getattr(out, "keccak_streams", None)
+    if streams is None:
+        streams = [(1, 0, out.replay.request_plaintext),
+                   (1, 1, out.replay.response_plaintext)]
+    ktrace, _ = keccak_trace(streams)
     return [ChipInstance(air=StreamParserAir(), trace=ptrace, publics=[]),
             ChipInstance(air=data_air, trace=dtrace, publics=[]),
             ChipInstance(air=XorTableAir(), trace=xtrace, publics=[]),
@@ -124,9 +143,10 @@ def _stream_chips(out, events, data_air, ks_xor_pairs: list,
 
 
 def build_chip_instances(out) -> list[ChipInstance]:
-    """The machine chip set for one session's guest execution (a
-    GuestOutput; the reference's batch merge, which presets the chip
-    inputs of several sessions, is not ported)."""
+    """The machine chip set for a guest execution: one session's
+    GuestOutput, or a batch's from `merge_guest_outputs` (which presets
+    the key-schedule sessions, EC jobs and stream-binding inputs of all
+    its sessions)."""
     from ..models.aes128_chip import aes_instances
     from ..models.ghash_chip import gcm_control_instance, ghash_instance
     from ..models.modmul_chip import modmul_instances
@@ -152,7 +172,9 @@ def build_chip_instances(out) -> list[ChipInstance]:
 
     # key-schedule witness first: its SHA-hop and xor-table consumption
     # feeds the other chips' multiplicities
-    ks_sessions = _derive_ks_sessions(out)
+    ks_sessions = getattr(out, "ks_sessions", None)
+    if ks_sessions is None:
+        ks_sessions = _derive_ks_sessions(out)
     ks_trace = None
     hop_counts: dict = {}
     ks_xor_pairs: list = []
@@ -201,8 +223,10 @@ def build_chip_instances(out) -> list[ChipInstance]:
     # recorded mulmod statements (BUS_MODMUL sends from the ModMul chips
     # feed the ladder's receives); the d·G lane is generator-pinned
     # in-chip, and the d·S result is the key schedule's premaster
-    ecd = getattr(out.replay, "ecdhe_weierstrass", None)
-    ec_pairs = [ecd] if ecd is not None else []
+    ec_pairs = getattr(out, "ec_jobs", None)
+    if ec_pairs is None:
+        ecd = getattr(out.replay, "ecdhe_weierstrass", None)
+        ec_pairs = [ecd] if ecd is not None else []
     ks_linked = {s.ec_rid for s in ks_sessions if s.ec_rid is not None}
     jobs = []
     for i, pair in enumerate(ec_pairs):
@@ -345,6 +369,113 @@ def journal_public_messages(journal: bytes, obj: int = 1,
     return msgs
 
 
+def merge_guest_outputs(outs: list[GuestOutput]) -> GuestOutput:
+    """Merge several sessions' witnesses into one chip workload (copy of
+    the reference's): SHA hash-object ids get per-session offsets so
+    chains stay disjoint, except the stream-tape chains, which take the
+    session's object id i + 1 (the batch verifier's filtered and bus
+    derivation); GCM events concatenate in session order (their event ids
+    are the global enumeration, which `batch_public_messages` mirrors);
+    ModMul events concatenate; each AES-GCM session contributes its parser
+    session, record metas, filtered multiplicities and keccak streams.
+    ChaCha events are not merged (the reference's limit, module
+    docstring)."""
+    import copy
+
+    from ..guest.crypto.sha256 import SHA256Recorder
+    from ..guest.crypto.sha512 import SHA512Recorder
+    from ..stark.chips.ec import EC_CURVES
+    from ..stark.chips.stream_parser import parser_sessions_from_replay
+
+    if len(outs) == 1:
+        return outs[0]
+    merged = copy.copy(outs[0])
+    merged.replay = copy.copy(outs[0].replay)
+    sha_events = []
+    sha512_events = []
+    gcm_events = []
+    modmul_events = []
+    ec_jobs = []
+    ks_sessions = []
+    metas = []
+    sessions = []
+    filtered = []
+    kstreams = []
+    eid_off = 0
+    for i, out in enumerate(outs):
+        off = (i + 1) << 20
+        for e in out.replay.sha256_recorder.events:
+            e2 = copy.copy(e)
+            e2.obj = (i + 1) if e.expose_block else e.obj + off
+            sha_events.append(e2)
+        if out.replay.gcm_events:
+            sessions.append(parser_sessions_from_replay(
+                out.stream, out.replay.gcm_events, out.v13, obj=i + 1,
+                eid_off=eid_off))
+            kstreams.append((i + 1, 0, out.replay.request_plaintext))
+            kstreams.append((i + 1, 1, out.replay.response_plaintext))
+            for m in out.gcm_metas:
+                m2 = copy.copy(m)
+                m2.eid = m.eid + eid_off
+                m2.obj = i + 1
+                metas.append(m2)
+            filtered.extend(_filtered_multiplicities(out.journal,
+                                                     obj=i + 1))
+        r512 = getattr(out.replay, "sha512_recorder", None)
+        if r512 is not None:
+            for e in r512.events:
+                e2 = copy.copy(e)
+                e2.obj = e.obj + off
+                sha512_events.append(e2)
+        gcm_events.extend(out.replay.gcm_events)
+        eid_off += len(out.replay.gcm_events)
+        modmul_events.extend(out.modmul_events)
+        ecd = getattr(out.replay, "ecdhe_weierstrass", None)
+        ec_rid = None
+        if ecd is not None:
+            ec_jobs.append(ecd)
+            if ecd[0] in EC_CURVES:
+                ec_rid = 2 * (len(ec_jobs) - 1) + 2
+        ks_sessions.extend(_derive_ks_sessions(
+            out, obj=i + 1, ec_rid=ec_rid, sid_base=0x1000 + 0x20 * i))
+    rec = SHA256Recorder()
+    rec.events = sha_events
+    merged.replay.sha256_recorder = rec
+    if sha512_events:
+        rec512 = SHA512Recorder()
+        rec512.events = sha512_events
+        merged.replay.sha512_recorder = rec512
+    else:
+        merged.replay.sha512_recorder = None
+    merged.replay.gcm_events = gcm_events
+    merged.modmul_events = modmul_events
+    merged.ec_jobs = ec_jobs
+    merged.ks_sessions = ks_sessions
+    merged.gcm_metas = metas
+    merged.parser_sessions = sessions
+    merged.filtered_mults = filtered
+    merged.keccak_streams = kstreams
+    return merged
+
+
+def batch_public_messages(journals: list[bytes]) -> list[tuple]:
+    """Verifier-side bus messages for a session batch: per-journal SHA
+    results, GCM record headers with event ids renumbered by the global
+    session-order enumeration, and filtered bytes under the session's
+    stream object id (i + 1)."""
+    from ..guest.journal import decode_journal
+    from ..stark.chips.gcm_control import GCM_RECORD_SIZE
+
+    msgs: list[tuple] = []
+    eid_off = 0
+    for i, journal in enumerate(journals):
+        msgs += journal_public_messages(journal, obj=i + 1,
+                                        eid_off=eid_off)
+        j = decode_journal(journal)
+        eid_off += len(j["gcm_records"]) // GCM_RECORD_SIZE
+    return msgs
+
+
 class StarkGuestProver:
     """ZkProver proving the guest witness as one machine STARK proof.
 
@@ -379,4 +510,35 @@ class StarkGuestProver:
         return verify_machine(
             journal_airs(journal, mp), mp, binding=journal,
             public_messages=journal_public_messages(journal),
+            config=self.config)
+
+    # -- multi-session batching ------------------------------------------
+
+    def prove_batch(self, guest_inputs: list[GuestInput],
+                    timings: dict | None = None
+                    ) -> tuple[list[bytes], bytes]:
+        """Prove several sessions as ONE machine proof on the prover's
+        device.  Returns (journals, proof); the proof binds the
+        concatenation of all journals.  timings: if given, receives the
+        seconds of `run_guest` (all sessions) and `build_chip_instances`
+        (the merge included) besides prove_machine's stages."""
+        t0 = time.perf_counter()
+        outs = [run_guest(gi) for gi in guest_inputs]
+        t1 = time.perf_counter()
+        chips = build_chip_instances(merge_guest_outputs(outs))
+        if timings is not None:
+            timings["run_guest"] = t1 - t0
+            timings["build_chip_instances"] = time.perf_counter() - t1
+        binding = b"".join(out.journal for out in outs)
+        proof = prove_machine(chips, binding=binding, config=self.config,
+                              device=self.device, timings=timings)
+        return [out.journal for out in outs], proof.to_bytes()
+
+    def verify_batch(self, journals: list[bytes], proof: bytes) -> bool:
+        """Raises stark.verifier.VerificationError on failure."""
+        mp = MachineProof.from_bytes(proof)
+        return verify_machine(
+            journal_airs(journals, mp), mp,
+            binding=b"".join(journals),
+            public_messages=batch_public_messages(journals),
             config=self.config)

@@ -1,8 +1,8 @@
 """Fiat-Shamir challenger: a duplex sponge over the width-16 Poseidon2
 permutation (host-side — the transcript is tiny and strictly sequential).
 
-Port copy of zktls_tpu.stark.challenger (on the port's pure-Python
-Poseidon2).  Duplex discipline:
+Port copy of zktls_tpu.stark.challenger (on the port's host Poseidon2:
+the C library, or the pure-Python plain version with `native=False`).  Duplex discipline:
 
   * observe(x): buffer base elements; when RATE=8 are buffered (or a sample
     is requested), absorb by overwriting the rate lanes and permute;
@@ -29,8 +29,9 @@ WIDTH = 16
 
 
 class Challenger:
-    def __init__(self, domain_tag: str = "zktls-tpu-stark-v1"):
-        self._perm = Poseidon2(WIDTH)
+    def __init__(self, domain_tag: str = "zktls-tpu-stark-v1",
+                 native: bool = True):
+        self._perm = Poseidon2(WIDTH, native=native)
         self.state = [0] * WIDTH
         self.input_buf: list[int] = []
         self.output_buf: list[int] = []

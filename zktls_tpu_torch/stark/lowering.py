@@ -31,7 +31,7 @@ from ..ops import babybear as bb
 from ..ops import ext as ex
 from ..ops.field_ref import P, Fp4
 
-__all__ = ["lower_air", "eval_quotient_vm", "Plan"]
+__all__ = ["lower_air", "eval_quotient_vm", "row_block", "Plan"]
 
 # leaf matrix kinds (U-region sources)
 ONE, LOCAL, NEXT, PERM, PERMNEXT, SEL, PERIODIC, PRE, PRENEXT = range(9)
@@ -710,12 +710,30 @@ def _eval_block(plan: Plan, idx: list, leaves: list, s_mont, apow_plain,
     return acc
 
 
+def row_block(mat: torch.Tensor, start: int, rows: int,
+              device: torch.device) -> torch.Tensor:
+    """Rows [start, start + rows) of `mat`, cyclically (row N is row 0), as
+    a field tensor on `device`.  `mat` may be resident or spilled to the
+    host (machine.py keeps large matrices there as int32)."""
+    N = mat.shape[0]
+    start %= N
+    if start + rows <= N:
+        blk = mat[start:start + rows]
+    else:
+        blk = torch.cat([mat[start:], mat[:start + rows - N]], dim=0)
+    return blk.to(device=device, dtype=bb.DTYPE, non_blocking=True)
+
+
 def eval_quotient_vm(air, lde, perm_lde, challenges, publics_full,
                      apow_plain: np.ndarray, sels_m: dict, inv_zh_m,
                      periodic_stack, log_blowup: int, pre_lde=None):
     """Evaluate all constraints over the commit domain via the constraint
     VM, fold with α powers, divide by Z_H.  Returns (N, 4) Montgomery
-    quotient values on the LDE's device.
+    quotient values on the selectors' device.
+
+    The trace, perm and preprocessed LDEs are read in row blocks (each
+    block with its next-row block, the rows `blowup` further on), so they
+    may live on the host (spilled) while the VM runs on the card.
 
     apow_plain: (n_constraints, 4) PLAIN-form α powers (the VM folds with
     a modular matmul whose weight side is plain)."""
@@ -724,7 +742,7 @@ def eval_quotient_vm(air, lde, perm_lde, challenges, publics_full,
         raise AssertionError(
             f"{air.name}: apow rows {apow_plain.shape[0]} != "
             f"constraint count {plan.n_constraints}")
-    dev = lde.device
+    dev = inv_zh_m.device
     s_table = _eval_scalars(plan, [int(v) % P for v in publics_full],
                             challenges)
     s_mont = bb.from_numpy(bb.np_to_mont(s_table), dev)
@@ -742,9 +760,6 @@ def eval_quotient_vm(air, lde, perm_lde, challenges, publics_full,
     shift = 1 << log_blowup
     if pre_lde is None:
         pre_lde = torch.zeros((N, 0), dtype=bb.DTYPE, device=dev)
-    next_lde = torch.roll(lde, -shift, dims=0)
-    next_perm = torch.roll(perm_lde, -shift, dims=0)
-    next_pre = torch.roll(pre_lde, -shift, dims=0)
     sels_full = torch.stack(
         [sels_m["is_first_row"], sels_m["is_last_row"],
          sels_m["is_transition"]], dim=1)                   # (N, 3)
@@ -761,9 +776,13 @@ def eval_quotient_vm(air, lde, perm_lde, challenges, publics_full,
     accs = []
     for r0 in range(0, N, B):
         rows = slice(r0, r0 + B)
-        leaves = [lde[rows], next_lde[rows], perm_lde[rows],
-                  next_perm[rows], sels_full[rows], periodic_full[rows],
-                  pre_lde[rows], next_pre[rows]]
+        leaves = [row_block(lde, r0, B, dev),
+                  row_block(lde, r0 + shift, B, dev),
+                  row_block(perm_lde, r0, B, dev),
+                  row_block(perm_lde, r0 + shift, B, dev),
+                  sels_full[rows], periodic_full[rows],
+                  row_block(pre_lde, r0, B, dev),
+                  row_block(pre_lde, r0 + shift, B, dev)]
         accs.append(_eval_block(plan, idx, leaves, s_mont, apow_t, acc0_m))
     acc = torch.cat(accs, dim=0)
     return ex.ext_scale(acc, inv_zh_m)

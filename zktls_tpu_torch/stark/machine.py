@@ -6,14 +6,26 @@ port's `MachineProof.to_bytes()` equals the reference's byte for byte on
 the same input, and each package's verifier accepts the other's proofs.
 
 Transcript order (prover/verifier mirror exactly):
-  header(binding, chip names/sizes/publics) → trace roots → γ, δ →
-  perm roots + bus sums → α → quotient roots → ζ → OOD evals → β →
-  FRI roots/folds → final layer → grinding → query indices.
+  header(binding, chip names/sizes/publics[, preprocessed roots]) → trace
+  roots → γ, δ → perm roots + bus sums → α → quotient roots → ζ → OOD
+  evals → β → FRI roots/folds → final layer → grinding → query indices.
 
-Not ported yet (each raises or is absent): preprocessed columns, several
-devices, host spill of large matrices, chunked DEEP.  FRI is the
-reference's host-driven fold loop, which gives the same bytes as its fused
-device program.
+Single-device features, all the reference's:
+  * preprocessed (fixed) columns: committed before the transcript starts,
+    their root bound into the header and checked by the verifier against
+    the root it is given (`preprocessed_root`, vk material);
+  * serial commits: each chip's tree and root are finished before the next
+    chip's LDE starts (`MerkleTree` builds synchronously), so the
+    reference's serial-commit guard holds with no option;
+  * host spill (`spill_bytes=`): a chip whose committed extensions pass
+    the limit keeps them on the host as int32 (pinned for a card) and
+    streams row blocks back for the quotient, DEEP and the openings;
+  * chunked DEEP (`chunked_deep_bytes=`): a large chip's DEEP matvecs run
+    per source matrix and row block instead of over one concatenation.
+  Every setting gives the same proof bytes.
+
+Not ported: several devices.  FRI is the reference's host-driven fold
+loop, which gives the same bytes as its fused device program.
 """
 
 from __future__ import annotations
@@ -35,7 +47,7 @@ from .bus import MAX_PAYLOAD, bus_term, delta_powers
 from .challenger import Challenger
 from .config import DEFAULT_CONFIG, StarkConfig, selector_arrays
 from .lookup import np_ext_mul, np_ext_powers
-from .lowering import eval_quotient_vm, lower_air
+from .lowering import eval_quotient_vm, lower_air, row_block
 from .proof import FriStep
 from .prover import (
     _deep_fn,
@@ -50,8 +62,8 @@ from .verifier import VerificationError, _eval_periodic, _final_low_degree
 
 __all__ = [
     "ChipInstance", "ChipProof", "ChipOpening", "MachineQuery",
-    "MachineProof", "prove_machine", "verify_machine", "MACHINE_DOMAIN_TAG",
-    "STAGES",
+    "MachineProof", "prove_machine", "verify_machine", "preprocessed_root",
+    "MACHINE_DOMAIN_TAG", "STAGES", "SPILL_BYTES", "CHUNKED_DEEP_BYTES",
 ]
 
 MACHINE_DOMAIN_TAG = b"zktls-tpu-machine-v2"
@@ -59,6 +71,20 @@ MACHINE_DOMAIN_TAG = b"zktls-tpu-machine-v2"
 #: the prover's stages, in order, as keys of its `timings` dict
 STAGES = ("lde_commit", "perm_commit", "quotient", "ood_openings", "deep",
           "fri", "queries")
+
+#: default host-spill limit: a chip's committed extensions (trace,
+#: preprocessed, perm and quotient LDEs, int64 on the device) above this
+#: many bytes move to the host.  A fifth of an 80 GB card: the
+#: eight-session batch (largest chip 2.9 GB) stays resident (PERF.md §5).
+SPILL_BYTES = 16e9
+#: default chunked-DEEP limit: a chip whose DEEP source matrices (both
+#: opening groups) pass this many bytes runs DEEP per matrix and row block
+#: instead of over their concatenation, which would double its resident
+#: matrices at the DEEP peak (PERF.md §5).
+CHUNKED_DEEP_BYTES = 2e9
+#: rows per block of a chunked or streamed DEEP matvec: blocks of at most
+#: this many matrix entries
+_DEEP_BLOCK_ENTRIES = 1 << 25
 
 _EXT_BASIS = [Fp4(1), Fp4(0, 1), Fp4(0, 0, 1), Fp4(0, 0, 0, 1)]
 
@@ -70,8 +96,9 @@ class ChipInstance:
     air: Air
     trace: np.ndarray        # (n, air.width) plain uint32
     publics: list[int]       # main public values (bus sum appended later)
-    #: fixed columns (n, air.preprocessed_width) — not supported by the
-    #: port's prover yet; must be None
+    #: fixed columns (n, air.preprocessed_width) for preprocessed chips —
+    #: a deterministic function of the statement, NOT prover-chosen; its
+    #: commitment root belongs in the verifying key
     preprocessed: np.ndarray | None = None
 
 
@@ -89,7 +116,8 @@ class ChipProof:
     pl: list[Fp4]
     pn: list[Fp4]
     qe: list[Fp4]
-    #: preprocessed-column openings (part of the format; empty in the port)
+    #: preprocessed-column openings at ζ / g·ζ (empty unless the chip has
+    #: preprocessed columns; the ROOT they commit to lives in the vk)
     el: list[Fp4] = field(default_factory=list)
     en: list[Fp4] = field(default_factory=list)
 
@@ -197,15 +225,19 @@ def _machine_order(items, log_n_of, name_of):
 
 
 def _observe_header(ch: Challenger, binding: bytes, entries) -> None:
-    """entries: (name, log_n, publics) per chip."""
+    """entries: (name, log_n, publics, preprocessed_root or None) per chip
+    — a chip's vk-committed preprocessed root is bound into the transcript
+    before anything is sampled."""
     ch.observe_bytes(MACHINE_DOMAIN_TAG)
     ch.observe_bytes(binding)
     ch.observe(len(entries))
-    for name, log_n, publics in entries:
+    for name, log_n, publics, pre_root in entries:
         ch.observe_bytes(name.encode())
         ch.observe(log_n)
         ch.observe(len(publics))
         ch.observe_many(publics)
+        if pre_root:
+            ch.observe_many(pre_root)
 
 
 def _sample_challenges(ch: Challenger) -> list[Fp4]:
@@ -246,15 +278,76 @@ def _mont(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     return bb.to_mont(bb.from_numpy(arr, dev))
 
 
+def _spill(d: dict, keys, limit: float, dev: torch.device) -> None:
+    """Host spill: once the chip's matrices under `keys` pass `limit` bytes
+    (int64 on the device), move them to the host as int32 — every value is
+    < p < 2^31 — pinned when the prover runs on a card.  Later stages read
+    them back in row blocks (`lowering.row_block`)."""
+    mats = [k for k in keys if k in d]
+    if sum(d[k].numel() * 8 for k in mats) <= limit:
+        return
+    for k in mats:
+        if d[k].dtype != torch.int32:
+            host = d[k].to("cpu", torch.int32)
+            d[k] = host.pin_memory() if dev.type == "cuda" else host
+    d["spilled"] = True
+
+
+def _deep_numer(parts, bpow_m: torch.Tensor, off: int, N: int,
+                dev: torch.device) -> torch.Tensor:
+    """Σ over `parts` of Σ_j β^j (V_j(x) − v_j): each part (matrix, its
+    Montgomery evals (w, 4)) takes the next w β powers from `off`.  Each
+    matrix — resident or spilled — is read in row blocks, so neither a
+    concatenation nor a full-size product is ever resident."""
+    comb = torch.zeros((N, 4), dtype=bb.DTYPE, device=dev)
+    const = torch.zeros((4,), dtype=bb.DTYPE, device=dev)
+    for mat, evals in parts:
+        w = int(mat.shape[1])
+        if w == 0:
+            continue
+        betas = bpow_m[off : off + w]
+        off += w
+        const = bb.add(const, bb.sum_mod(ex.ext_mul(betas, evals), dim=0))
+        B = max(1, min(N, _DEEP_BLOCK_ENTRIES // w))
+        for r0 in range(0, N, B):
+            blk = row_block(mat, r0, min(B, N - r0), dev)
+            part = torch.stack([bb.dot_mod(blk, betas[None, :, ell], dim=1)
+                                for ell in range(4)], dim=-1)
+            comb[r0 : r0 + blk.shape[0]] = bb.add(
+                comb[r0 : r0 + blk.shape[0]], part)
+    return ex.ext_sub(comb, const[None, :])
+
+
+def _deep_chunked(parts_z, parts_gz, bpow_m: torch.Tensor, w_z: int,
+                  inv_x_zeta: torch.Tensor, inv_x_gzeta: torch.Tensor
+                  ) -> torch.Tensor:
+    """DEEP composition without concatenating the source matrices: the same
+    value as `prover._deep_fn` over [trace ‖ pre ‖ perm ‖ quotient] and
+    [trace ‖ pre ‖ perm], summed per source matrix and row block (port of
+    the reference's `_deep_chunked`).  bpow_m holds the ζ-group's β powers,
+    then the g·ζ-group's."""
+    N, dev = inv_x_zeta.shape[0], inv_x_zeta.device
+    numer_z = _deep_numer(parts_z, bpow_m, 0, N, dev)
+    numer_gz = _deep_numer(parts_gz, bpow_m, w_z, N, dev)
+    return ex.ext_add(ex.ext_mul(numer_z, inv_x_zeta),
+                      ex.ext_mul(numer_gz, inv_x_gzeta))
+
+
 def prove_machine(chips: list[ChipInstance], binding: bytes,
                   config: StarkConfig = DEFAULT_CONFIG, device=None,
-                  timings: dict | None = None) -> MachineProof:
+                  timings: dict | None = None,
+                  spill_bytes: float = SPILL_BYTES,
+                  chunked_deep_bytes: float = CHUNKED_DEEP_BYTES
+                  ) -> MachineProof:
     """Prove `chips` as one machine STARK bound to `binding`.
 
     device: where the tensor work runs — the CUDA card by default (raises
     without one), "cpu" for the plain torch versions.  timings: if given,
     receives the seconds of each stage in STAGES (the device is
-    synchronised at each stage boundary)."""
+    synchronised at each stage boundary).  spill_bytes, chunked_deep_bytes:
+    per-chip byte limits of host spill and chunked DEEP (module docstring;
+    0 turns each on for every chip, `float("inf")` off); they change where
+    matrices live, never the proof bytes."""
     dev = _resolve_device(device)
     t_last = [time.perf_counter()]
 
@@ -286,10 +379,16 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
                 f"{inst.air.width}")
         if inst.air.max_constraint_degree + 1 > config.blowup:
             raise ValueError(f"{inst.air.name}: constraint degree too high")
-        if getattr(inst.air, "preprocessed_width", 0) or \
-                inst.preprocessed is not None:
-            raise NotImplementedError(
-                f"{inst.air.name}: preprocessed columns are not ported yet")
+        pre_w = getattr(inst.air, "preprocessed_width", 0)
+        if pre_w:
+            if inst.preprocessed is None or \
+                    inst.preprocessed.shape != (n, pre_w):
+                raise ValueError(
+                    f"{inst.air.name}: preprocessed trace must be "
+                    f"({n}, {pre_w})")
+        elif inst.preprocessed is not None:
+            raise ValueError(
+                f"{inst.air.name}: unexpected preprocessed trace")
         metas.append((inst, log_n))
     metas = _machine_order(metas, lambda m: m[1], lambda m: m[0].air.name)
     log_N_max = metas[0][1] + config.log_blowup
@@ -305,24 +404,39 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
         k = log_N_max - (log_n + config.log_blowup)
         shifts[inst.air.name] = pow(config.shift, 1 << k, P)
 
+    # 0. preprocessed commits — fixed columns, committed before the
+    # transcript starts; their roots are vk material bound into the header
+    # (the verifier checks the openings against the roots it is given)
+    per = {}
+    for inst, log_n in metas:
+        d = per[inst.air.name] = {"log_n": log_n, "s": shifts[inst.air.name]}
+        if inst.preprocessed is not None:
+            pre_m = _mont(inst.preprocessed, dev)
+            d["pre_m"] = pre_m
+            d["pre_lde"] = coset_lde(pre_m, config.log_blowup, d["s"])
+            d["pre_tree"] = MerkleTree(d["pre_lde"])
+            d["pre_root"] = [int(x) for x in d["pre_tree"].root]
+
     ch = Challenger()
     _observe_header(
         ch, binding,
-        [(inst.air.name, log_n, [int(v) % P for v in inst.publics])
+        [(inst.air.name, log_n, [int(v) % P for v in inst.publics],
+          per[inst.air.name].get("pre_root"))
          for inst, log_n in metas])
 
-    # 1. main-trace commits
-    per = {}
+    # 1. main-trace commits; each chip's tree and root are done before the
+    # next chip's LDE (serial commits)
     for inst, log_n in metas:
-        name = inst.air.name
+        d = per[inst.air.name]
         trace_m = _mont(inst.trace, dev)
-        lde = coset_lde(trace_m, config.log_blowup, shifts[name])
+        lde = coset_lde(trace_m, config.log_blowup, d["s"])
         tree = MerkleTree(lde)
-        per[name] = {"log_n": log_n, "s": shifts[name], "trace_m": trace_m,
-                     "lde": lde, "trace_tree": tree,
-                     "trace_root": [int(x) for x in tree.root]}
+        d.update(trace_m=trace_m, lde=lde, trace_tree=tree,
+                 trace_root=[int(x) for x in tree.root])
     for inst, log_n in metas:
-        ch.observe_many(per[inst.air.name]["trace_root"])
+        d = per[inst.air.name]
+        ch.observe_many(d["trace_root"])
+        _spill(d, ("lde", "pre_lde"), spill_bytes, dev)
     _mark("lde_commit")
 
     # 2. machine challenges + perm commits + bus sums
@@ -332,8 +446,11 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
         air = inst.air
         n = 1 << log_n
         if air.perm_width:
+            kw = ({"preprocessed": inst.preprocessed}
+                  if inst.preprocessed is not None else {})
             perm_np = air.generate_perm_trace(
-                inst.trace, [int(v) % P for v in inst.publics], challenges)
+                inst.trace, [int(v) % P for v in inst.publics], challenges,
+                **kw)
             if perm_np.shape != (n, air.perm_width):
                 raise ValueError(f"{air.name}: bad perm trace shape")
             perm_m = _mont(perm_np, dev)
@@ -357,6 +474,7 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
         if inst.air.perm_width:
             ch.observe_many(d["perm_root"])
             ch.observe_many(d["bus_sum"])
+        _spill(d, ("lde", "pre_lde", "perm_lde"), spill_bytes, dev)
     _mark("perm_commit")
 
     # 3. quotients
@@ -390,7 +508,8 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
 
         quotient_vals = eval_quotient_vm(
             air, d["lde"], d["perm_lde"], challenges, publics_full, apow,
-            sels_m, inv_zh_m, periodic_stack, config.log_blowup)
+            sels_m, inv_zh_m, periodic_stack, config.log_blowup,
+            pre_lde=d.get("pre_lde"))
 
         q_coeffs = coset_coeffs(quotient_vals, s_i)
         chunks = [q_coeffs[k * n : (k + 1) * n]
@@ -402,32 +521,32 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
         d.update(q_cols=q_cols, q_chunks=chunks, q_tree=q_tree,
                  q_root=[int(x) for x in q_tree.root])
     for inst, log_n in metas:
-        ch.observe_many(per[inst.air.name]["q_root"])
+        d = per[inst.air.name]
+        ch.observe_many(d["q_root"])
+        _spill(d, ("lde", "pre_lde", "perm_lde", "q_cols"), spill_bytes, dev)
     _mark("quotient")
 
     # 4. out-of-domain openings
     zeta = ch.sample_ext()
+    empty = np.zeros((0, 4), dtype=np.uint32)
     for inst, log_n in metas:
         d = per[inst.air.name]
         n = 1 << log_n
         g_zeta = zeta * two_adic_root(log_n)
         zpows = _zeta_powers(zeta, n, dev)
         gzpows = _zeta_powers(g_zeta, n, dev)
-        trace_coeffs = intt(d["trace_m"])
-        tl = _ext_evals_at(trace_coeffs, zpows)
-        tn = _ext_evals_at(trace_coeffs, gzpows)
-        qe = np.concatenate(
+        evals_np = {}
+        for key_l, key_n, src in (("tl", "tn", "trace_m"),
+                                  ("pl", "pn", "perm_m"),
+                                  ("el", "en", "pre_m")):
+            if src in d and d[src].shape[1]:
+                coeffs = intt(d[src])
+                evals_np[key_l] = _ext_evals_at(coeffs, zpows)
+                evals_np[key_n] = _ext_evals_at(coeffs, gzpows)
+            else:
+                evals_np[key_l] = evals_np[key_n] = empty
+        evals_np["qe"] = np.concatenate(
             [_ext_evals_at(c, zpows) for c in d["q_chunks"]], axis=0)
-        if inst.air.perm_width:
-            perm_coeffs = intt(d["perm_m"])
-            pl = _ext_evals_at(perm_coeffs, zpows)
-            pn = _ext_evals_at(perm_coeffs, gzpows)
-        else:
-            pl = np.zeros((0, 4), dtype=np.uint32)
-            pn = np.zeros((0, 4), dtype=np.uint32)
-        empty = np.zeros((0, 4), dtype=np.uint32)
-        evals_np = {"tl": tl, "tn": tn, "pl": pl, "pn": pn, "qe": qe,
-                    "el": empty, "en": empty}
         d["evals"] = {k: [Fp4(*[int(x) for x in row]) for row in arr]
                       for k, arr in evals_np.items()}
         d["evals_np"] = evals_np
@@ -436,18 +555,19 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
             for v in d["evals"][k]:
                 ch.observe_ext(v)
         # free what later stages do not read
-        for k in ("trace_m", "perm_m", "q_chunks"):
-            d.pop(k)
+        for k in ("trace_m", "perm_m", "pre_m", "q_chunks"):
+            d.pop(k, None)
     _mark("ood_openings")
 
     # 5. DEEP composition per chip, grouped by domain size.  β-power
-    # budget, per chip: ζ-group [trace ‖ perm ‖ quotient] then g·ζ-group
-    # [trace ‖ perm]
+    # budget, per chip: ζ-group [trace ‖ pre ‖ perm ‖ quotient] then
+    # g·ζ-group [trace ‖ pre ‖ perm]
     beta = ch.sample_ext()
     total_terms = 0
     for inst, log_n in metas:
         d = per[inst.air.name]
-        w = inst.air.width + inst.air.perm_width
+        w = (inst.air.width + getattr(inst.air, "preprocessed_width", 0)
+             + inst.air.perm_width)
         d["w_z"] = w + int(d["q_cols"].shape[1])
         d["w_gz"] = w
         d["beta_off"] = total_terms
@@ -465,19 +585,31 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
         gzeta_arr = bb.from_numpy(ex.from_fp4(d["g_zeta"]), dev).expand(N, 4)
         inv_x_zeta = ex.ext_inv(ex.ext_sub(x_ext, zeta_arr))
         inv_x_gzeta = ex.ext_inv(ex.ext_sub(x_ext, gzeta_arr))
-        env = d["evals_np"]
-        mat_z = torch.cat([d["lde"], d["perm_lde"], d["q_cols"]], dim=1)
-        mat_gz = torch.cat([d["lde"], d["perm_lde"]], dim=1)
-        ev_z = bb.from_numpy(bb.np_to_mont(np.concatenate(
-            [env["tl"], env["pl"], env["qe"]], axis=0)), dev)
-        ev_gz = bb.from_numpy(bb.np_to_mont(np.concatenate(
-            [env["tn"], env["pn"]], axis=0)), dev)
+        env = {k: bb.from_numpy(bb.np_to_mont(v), dev)
+               for k, v in d["evals_np"].items()}
         bslice = bb.from_numpy(
             bpow_all[d["beta_off"] : d["beta_off"] + d["w_z"] + d["w_gz"]],
             dev)
-        deep = _deep_fn(mat_z, mat_gz, bslice, ev_z, ev_gz, inv_x_zeta,
-                        inv_x_gzeta)
-        del mat_z, mat_gz
+        pre_lde = d.get("pre_lde",
+                        torch.zeros((N, 0), dtype=bb.DTYPE, device=dev))
+        srcs = [(d["lde"], "tl", "tn"), (pre_lde, "el", "en"),
+                (d["perm_lde"], "pl", "pn")]
+        if d.get("spilled") or \
+                N * 8 * (d["w_z"] + d["w_gz"]) > chunked_deep_bytes:
+            deep = _deep_chunked(
+                [(m, env[z]) for m, z, _ in srcs]
+                + [(d["q_cols"], env["qe"])],
+                [(m, env[gz]) for m, _, gz in srcs],
+                bslice, d["w_z"], inv_x_zeta, inv_x_gzeta)
+        else:
+            mats = [m for m, _, _ in srcs]
+            mat_z = torch.cat(mats + [d["q_cols"]], dim=1)
+            mat_gz = torch.cat(mats, dim=1)
+            ev_z = torch.cat([env[z] for _, z, _ in srcs] + [env["qe"]])
+            ev_gz = torch.cat([env[gz] for _, _, gz in srcs])
+            deep = _deep_fn(mat_z, mat_gz, bslice, ev_z, ev_gz, inv_x_zeta,
+                            inv_x_gzeta)
+            del mat_z, mat_gz
         if log_N in deep_by_log:
             deep_by_log[log_N] = ex.ext_add(deep_by_log[log_N], deep)
         else:
@@ -518,15 +650,16 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
     q_indices = [ch.sample_bits(log_N_max)
                  for _ in range(config.num_queries)]
 
-    # gather queried rows per chip (index = q mod N_i)
+    # gather queried rows per chip (index = q mod N_i), on the device that
+    # holds each matrix (the host for a spilled one)
     rows_by_chip = {}
     for inst, log_n in metas:
         d = per[inst.air.name]
         N_i = 1 << (log_n + config.log_blowup)
         idx_np = np.array([q % N_i for q in q_indices], dtype=np.int64)
-        idx = torch.from_numpy(idx_np).to(dev)
 
         def _rows(mat):
+            idx = torch.from_numpy(idx_np).to(mat.device)
             return bb.np_from_mont(bb.to_numpy(mat[idx]))
 
         rows_by_chip[inst.air.name] = {
@@ -534,6 +667,7 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
             "trace": _rows(d["lde"]),
             "quot": _rows(d["q_cols"]),
             "perm": _rows(d["perm_lde"]) if inst.air.perm_width else None,
+            "pre": _rows(d["pre_lde"]) if "pre_lde" in d else None,
         }
 
     # per-layer FRI pair gathers
@@ -552,6 +686,11 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
     def _path(tree, j):
         return [[int(x) for x in h] for h in tree.open(j)]
 
+    def _opened(rows, tree, qi_pos, j):
+        if rows is None:
+            return [], []
+        return [int(x) for x in rows[qi_pos]], _path(tree, j)
+
     queries = []
     nq = config.num_queries
     for qi_pos, q in enumerate(q_indices):
@@ -560,15 +699,17 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
             d = per[inst.air.name]
             rc = rows_by_chip[inst.air.name]
             j = rc["idx"][qi_pos]
+            perm_row, perm_path = _opened(rc["perm"], d["perm_tree"],
+                                          qi_pos, j)
+            pre_row, pre_path = _opened(rc["pre"], d.get("pre_tree"),
+                                        qi_pos, j)
             openings.append(ChipOpening(
                 trace_row=[int(x) for x in rc["trace"][qi_pos]],
                 trace_path=_path(d["trace_tree"], j),
                 quotient_row=[int(x) for x in rc["quot"][qi_pos]],
                 quotient_path=_path(d["q_tree"], j),
-                perm_row=([int(x) for x in rc["perm"][qi_pos]]
-                          if rc["perm"] is not None else []),
-                perm_path=(_path(d["perm_tree"], j)
-                           if d["perm_tree"] is not None else []),
+                perm_row=perm_row, perm_path=perm_path,
+                pre_row=pre_row, pre_path=pre_path,
             ))
         steps = []
         for ell, tree in enumerate(fri_trees):
@@ -597,6 +738,19 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
     )
 
 
+def preprocessed_root(air: Air, preprocessed: np.ndarray, log_n_max: int,
+                      log_n: int, config: StarkConfig = DEFAULT_CONFIG,
+                      device=None) -> list[int]:
+    """The vk commitment of a chip's preprocessed matrix: LDE on the chip's
+    machine coset (set by its height relative to the machine's largest)
+    and Merkle root.  Deterministic — computed once at setup and
+    distributed with the verifying key.  device: as `prove_machine`'s."""
+    dev = _resolve_device(device)
+    s_i = pow(config.shift, 1 << (log_n_max - log_n), P)
+    pre_lde = coset_lde(_mont(preprocessed, dev), config.log_blowup, s_i)
+    return [int(x) for x in MerkleTree(pre_lde).root]
+
+
 # ---------------------------------------------------------------------------
 # verifier (pure host Python, mirrors the transcript exactly)
 # ---------------------------------------------------------------------------
@@ -609,7 +763,9 @@ def _check(cond: bool, what: str) -> None:
 
 def verify_machine(airs: list[Air], proof: MachineProof, binding: bytes,
                    public_messages: list[tuple] | None = None,
-                   config: StarkConfig = DEFAULT_CONFIG) -> bool:
+                   config: StarkConfig = DEFAULT_CONFIG,
+                   preprocessed_roots: dict[str, list[int]] | None = None,
+                   ) -> bool:
     """Verify a machine proof (host only; no device work).
 
     public_messages: the verifier-side bus messages, each (tag, payload)
@@ -618,13 +774,18 @@ def verify_machine(airs: list[Air], proof: MachineProof, binding: bytes,
     chip published); mult = +1 means the verifier SENDS it.  The global bus
     balance Σ chip bus sums + Σ mult/(γ−fp(msg)) must be zero; any
     missing, extra or altered message breaks it.
+
+    preprocessed_roots: vk material — chip name → Merkle root of the
+    chip's FIXED column matrix (`preprocessed_root`).  Required for every
+    chip whose air has preprocessed_width > 0; the proof's preprocessed
+    openings are checked against these trusted roots, never against
+    prover-supplied ones.
     Raises VerificationError on failure; returns True on success.
     """
     public_messages = public_messages or []
+    preprocessed_roots = preprocessed_roots or {}
     air_by_name = {a.name: a for a in airs}
     _check(len(air_by_name) == len(airs), "duplicate airs")
-    if any(getattr(a, "preprocessed_width", 0) for a in airs):
-        raise NotImplementedError("preprocessed columns are not ported yet")
     # multiset equality: a proof must contain EVERY air exactly once
     _check(sorted(c.name for c in proof.chips) == sorted(air_by_name),
            "chip name multiset != air set")
@@ -666,14 +827,20 @@ def verify_machine(airs: list[Air], proof: MachineProof, binding: bytes,
         if not getattr(air, "has_bus", False):
             _check(cp.bus_sum == [0, 0, 0, 0],
                    f"{cp.name}: non-zero bus sum on busless chip")
-        _check(not cp.el and not cp.en,
+        ew = getattr(air, "preprocessed_width", 0)
+        _check(len(cp.el) == ew and len(cp.en) == ew,
                f"{cp.name}: bad preprocessed eval count")
+        if ew:
+            _check(cp.name in preprocessed_roots,
+                   f"{cp.name}: verifying key missing preprocessed root")
         geo.append((cp, air, n, log_N, s_i))
 
     # --- transcript replay -------------------------------------------------
     ch = Challenger()
     _observe_header(ch, binding,
-                    [(cp.name, cp.log_n, cp.publics) for cp in proof.chips])
+                    [(cp.name, cp.log_n, cp.publics,
+                      preprocessed_roots.get(cp.name))
+                     for cp in proof.chips])
     for cp in proof.chips:
         ch.observe_many(cp.trace_root)
     challenges = _sample_challenges(ch)
@@ -735,7 +902,7 @@ def verify_machine(airs: list[Air], proof: MachineProof, binding: bytes,
         folded = air.fold_constraints_scalar(
             cp.tl, cp.tn, publics_full, sels, alpha,
             periodic=periodic_at_zeta, perm_local=cp.pl, perm_next=cp.pn,
-            challenges=challenges)
+            challenges=challenges, pre_local=cp.el, pre_next=cp.en)
         zeta_n = zeta**n
         q_at_zeta = Fp4(0)
         zpow = Fp4(1)
@@ -753,11 +920,13 @@ def verify_machine(airs: list[Air], proof: MachineProof, binding: bytes,
     total_terms = 0
     deep_prep = {}
     for cp, air, n, log_N, s_i in geo:
-        w_z = air.width + air.perm_width + 4 * config.blowup
-        w_gz = air.width + air.perm_width
-        ev_z = np.array([list(v.c) for v in (cp.tl + cp.pl + cp.qe)],
-                        dtype=np.uint64)
-        ev_gz = np.array([list(v.c) for v in (cp.tn + cp.pn)],
+        ew = getattr(air, "preprocessed_width", 0)
+        w_z = air.width + ew + air.perm_width + 4 * config.blowup
+        w_gz = air.width + ew + air.perm_width
+        ev_z = np.array(
+            [list(v.c) for v in (cp.tl + cp.el + cp.pl + cp.qe)],
+            dtype=np.uint64)
+        ev_gz = np.array([list(v.c) for v in (cp.tn + cp.en + cp.pn)],
                          dtype=np.uint64)
         deep_prep[cp.name] = (total_terms, w_z, w_gz, ev_z, ev_gz)
         total_terms += w_z + w_gz
@@ -778,8 +947,6 @@ def verify_machine(airs: list[Air], proof: MachineProof, binding: bytes,
                    f"{cp.name}: bad trace row")
             _check(len(op.quotient_row) == 4 * config.blowup,
                    f"{cp.name}: bad quotient row")
-            _check(not op.pre_row and not op.pre_path,
-                   f"{cp.name}: bad preprocessed row")
             _check(verify_path(
                 hash_row_ints([v % P for v in op.trace_row]), j,
                 op.trace_path, cp.trace_root),
@@ -794,11 +961,24 @@ def verify_machine(airs: list[Air], proof: MachineProof, binding: bytes,
                     hash_row_ints([v % P for v in op.perm_row]), j,
                     op.perm_path, cp.perm_root),
                     f"{cp.name}: perm Merkle path failed")
+            ew = getattr(air, "preprocessed_width", 0)
+            if ew:
+                _check(len(op.pre_row) == ew,
+                       f"{cp.name}: bad preprocessed row")
+                _check(verify_path(
+                    hash_row_ints([v % P for v in op.pre_row]), j,
+                    op.pre_path, preprocessed_roots[cp.name]),
+                    f"{cp.name}: preprocessed Merkle path failed "
+                    "(vk root)")
+            else:
+                _check(not op.pre_row and not op.pre_path,
+                       f"{cp.name}: bad preprocessed row")
             x = Fp4(s_i * pow(two_adic_root(log_N), j, P) % P)
             g_zeta = zeta * two_adic_root(cp.log_n)
             off, w_z, w_gz, ev_z, ev_gz = deep_prep[cp.name]
             row_z = np.array(
-                [v % P for v in (list(op.trace_row) + list(op.perm_row)
+                [v % P for v in (list(op.trace_row) + list(op.pre_row)
+                                 + list(op.perm_row)
                                  + list(op.quotient_row))],
                 dtype=np.uint64)
             diff_z = (P - ev_z) % P

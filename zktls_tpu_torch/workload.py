@@ -8,6 +8,13 @@
   the port's replay of the session's GuestInput, and its journal (the
   proof's binding; `StarkGuestProver.verify` derives the public messages
   from it).
+* `batch_machine(name)`: a batch of committed sessions (`BATCHES`) merged
+  by `provers.stark.merge_guest_outputs` into one chip workload, and the
+  batch's journals (the proof binds their concatenation;
+  `StarkGuestProver.verify_batch` derives the public messages from them).
+* `preprocessed_machine(log_n)`: a FixedMulAir chip (y = c·x + d with
+  (c, d) in preprocessed columns) beside a Fibonacci chip of half its
+  height — the smallest machine with a preprocessed commit.
 
 Each session is a loopback recording (scripts/record_session_c02f_p256.py
 --suite ...) with a 512-byte JSON body of which 10 bytes are filtered,
@@ -23,12 +30,16 @@ from pathlib import Path
 import numpy as np
 
 from .guest.crypto.sha256 import SHA256Recorder
+from .models.fibonacci import FibonacciAir, fibonacci_trace
+from .ops.field_ref import P
+from .stark.air import Air
 from .stark.bus import BUS_SHA_RESULT, digest_limbs
 from .stark.chips.sha256 import Sha256Air, sha256_trace
 from .stark.machine import ChipInstance
 
 __all__ = ["sha_machine", "Session", "SESSIONS", "SESSION_GUEST_INPUT",
-           "session_machine"]
+           "session_machine", "Batch", "BATCHES", "batch_machine",
+           "FixedMulAir", "preprocessed_machine"]
 
 DATA = Path(__file__).resolve().parent / "data"
 
@@ -96,6 +107,43 @@ SESSIONS = {
 SESSION_GUEST_INPUT = SESSIONS["c02f"].guest_input
 
 
+@dataclass(frozen=True)
+class Batch:
+    """A batch of committed sessions proved as one machine."""
+
+    #: the sessions' names (keys of SESSIONS), in batch order
+    sessions: tuple
+    #: (chip name, rows, columns, perm columns) in build order, as the
+    #: reference's merge_guest_outputs + build_chip_instances give them
+    chips: tuple
+
+
+#: the batches by name: the c02f session twice and eight times (the
+#: reference's "batch of 8 TLS transcripts", BASELINE.json configs[3])
+BATCHES = {
+    "c02f_x2": Batch(
+        ("c02f",) * 2,
+        (("Sha256Air", 32768, 639, 32), ("Aes128Air", 2048, 851, 96),
+         ("GhashAir", 16384, 779, 32), ("GcmControlAir", 128, 303, 144),
+         ("StreamParserAir", 8192, 141, 44), ("GcmDataAir", 2048, 39, 36),
+         ("XorTableAir", 256, 1, 8), ("KeccakAir", 2048, 1999, 44),
+         ("EcScheduleAir", 512, 1302, 1128),
+         ("KeyScheduleAir", 128, 181, 244),
+         ("ModMul256Air", 16384, 324, 584),
+         ("ModMulRsa2048Air", 256, 3832, 5120))),
+    "c02f_x8": Batch(
+        ("c02f",) * 8,
+        (("Sha256Air", 131072, 639, 32), ("Aes128Air", 8192, 851, 96),
+         ("GhashAir", 65536, 779, 32), ("GcmControlAir", 512, 303, 144),
+         ("StreamParserAir", 32768, 141, 44), ("GcmDataAir", 8192, 39, 36),
+         ("XorTableAir", 256, 1, 8), ("KeccakAir", 8192, 1999, 44),
+         ("EcScheduleAir", 2048, 1302, 1128),
+         ("KeyScheduleAir", 512, 181, 244),
+         ("ModMul256Air", 65536, 324, 584),
+         ("ModMulRsa2048Air", 256, 3832, 5120))),
+}
+
+
 def sha_machine(count: int, size: int, seed: int
                 ) -> tuple[ChipInstance, list[tuple]]:
     """`count` messages of `size` seeded random bytes, hashed with result
@@ -124,3 +172,57 @@ def session_machine(name: str = "c02f"
     gi = GuestInput.from_cbor(SESSIONS[name].guest_input.read_bytes())
     out = run_guest(gi, require_trust_anchor=False)
     return build_chip_instances(out), out.journal
+
+
+def batch_machine(name: str = "c02f_x2"
+                  ) -> tuple[list[ChipInstance], list[bytes]]:
+    """(the batch's merged chip instances, its journals): the port's
+    `run_guest` of each committed GuestInput, the chain not required to
+    anchor, merged by `merge_guest_outputs`."""
+    from .core.types import GuestInput
+    from .guest.program import run_guest
+    from .provers.stark import build_chip_instances, merge_guest_outputs
+
+    outs = [run_guest(GuestInput.from_cbor(
+        SESSIONS[s].guest_input.read_bytes()), require_trust_anchor=False)
+        for s in BATCHES[name].sessions]
+    return (build_chip_instances(merge_guest_outputs(outs)),
+            [out.journal for out in outs])
+
+
+class FixedMulAir(Air):
+    """y = c·x + d with (c, d) preprocessed — the prover cannot choose the
+    coefficients, only (x, y) satisfying the committed program; a
+    transition through the preprocessed NEXT row keeps c nonincreasing by
+    steps of 0 or 1 (the chip of tests/test_preprocessed.py)."""
+
+    width = 2
+    preprocessed_width = 2
+    num_public = 0
+    max_constraint_degree = 2
+    name = "FixedMulAir"
+
+    def eval(self, b):
+        x, y = b.local[0], b.local[1]
+        c, d = b.pre_local[0], b.pre_local[1]
+        b.assert_zero(y - (c * x + d))
+        c_n = b.pre_next[0]
+        b.when_transition((c - c_n) * (c - c_n - 1))
+
+
+def preprocessed_machine(log_n: int, seed: int = 7
+                         ) -> tuple[list[ChipInstance], np.ndarray]:
+    """(a FixedMulAir chip of 2^log_n seeded rows beside a Fibonacci chip
+    of 2^(log_n − 1) rows, the FixedMulAir's preprocessed matrix)."""
+    n = 1 << log_n
+    rng = np.random.default_rng(seed)
+    c = np.arange(n, 0, -1, dtype=np.uint32) // 2   # steps of 0 or 1
+    d = rng.integers(0, 1000, n).astype(np.uint32)
+    x = rng.integers(0, 10**6, n).astype(np.uint32)
+    y = (c.astype(np.uint64) * x + d) % P
+    pre = np.stack([c, d], axis=1).astype(np.uint32)
+    trace = np.stack([x, y.astype(np.uint32)], axis=1)
+    fib, fib_pub = fibonacci_trace(log_n - 1)
+    return [ChipInstance(air=FixedMulAir(), trace=trace, publics=[],
+                         preprocessed=pre),
+            ChipInstance(air=FibonacciAir(), trace=fib, publics=fib_pub)], pre
