@@ -74,15 +74,37 @@ without printing a result:
      and the identities of the larger chips passed; a journal batch with a
      changed filtered byte in the second (c02f_x2) or fifth (c02f_x8)
      session must fail earlier, at the global bus balance;
- 10. one JSON line describing each kernel (launches: the c02f_x8 batch's
-     prove; permute: the grinding path's, its one caller; every path's
-     launches under "launches_by_path");
- 11. last line: {"ok": true, "device": {...}}.
+ 10. the compress rung (the slice's full-width path): first the mid-scale
+     compress — the 256-row Sha256Air machine of phase 5
+     (workload.sha_compress_machine) proved on the card and compressed by
+     recursion_prove on the card, inner and outer at DEFAULT_CONFIG: a
+     256,047-instruction program, VmAir 262,144 rows; the outer proof must
+     hash to COMPRESS_PROOF_SHA256 (the port's CPU bytes,
+     scripts/session_proof_cpu.py --compress sha, which the JAX package's
+     recursion_verify accepts) and verify.  Then the 0x1303 session's card
+     proof from phase 7 (its digest required; proved here if the sessions
+     path did not run): hold hash_rows against its plain version at every
+     LDE shape of the outer chips (VmAir trace, preprocessed, perm and
+     quotient at 2^25 rows; the sponge chips') and merkle_levels at 2^25
+     leaves; StarkGuestProver().compress(journal, proof) on the card with
+     the launch counters reset just before and read just after, its
+     build_program, outer_chips, outer prove_machine stages and
+     vk_from_prog seconds, peak device memory, the blob's size and
+     SHA-256; the program must have 7,689,048 instructions and the outer
+     chips VmAir 8,388,608, Sponge16Air 32,768 and Sponge24Air 65,536 rows
+     (workload.COMPRESSES); verify_compressed with a fresh vk cache under
+     build/ (cold: it rebuilds the program and derives the root, which must
+     equal the blob's), again (cached), and against a journal with a
+     changed filtered byte, which it must reject;
+ 11. one JSON line describing each kernel (launches: the compress's;
+     permute: the grinding path's, its one caller; every path's launches
+     under "launches_by_path");
+ 12. last line: {"ok": true, "device": {...}}.
 
 `--only` runs phases 1-3 and the named paths of sha, sessions,
-preprocessed, c02f_x2, c02f_x8 (a check while working on one of them; it
-prints neither the kernels line nor the result).  Needs one card, nvcc
-(/usr/local/cuda), a C compiler and no network.
+preprocessed, c02f_x2, c02f_x8, compress (a check while working on one of
+them; it prints neither the kernels line nor the result).  Needs one card,
+nvcc (/usr/local/cuda), a C compiler and no network.
 """
 
 from __future__ import annotations
@@ -91,6 +113,8 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -126,7 +150,19 @@ BATCH_PROOF_SHA256 = {
 #: trace of a second session's region satisfies it
 PARSER_FAULT = "StreamParserAir: constraint identity failed at zeta"
 #: the optional paths, in the order they run
-PATHS = ("sha", "sessions", "preprocessed", "c02f_x2", "c02f_x8")
+PATHS = ("sha", "sessions", "preprocessed", "c02f_x2", "c02f_x8",
+         "compress")
+#: rows per block of a plain hash_rows held against the kernel
+PLAIN_ROWS = 1 << 21
+#: SHA-256 of the port's DEFAULT_CONFIG compress of the 256-row Sha256Air
+#: machine on the CPU (python scripts/session_proof_cpu.py --compress sha,
+#: whose outer proof the JAX package's recursion_verify accepts)
+COMPRESS_PROOF_SHA256 = (
+    "f0b53f6e5d20d68e29a8883807324dfcc2d74ed29642255957a417ecafaa871b")
+#: the mid-scale compress's program and outer chips (rows)
+SHA_COMPRESS_INSTRS = 256047
+SHA_COMPRESS_CHIPS = {"VmAir": 262144, "Sponge16Air": 4096,
+                      "Sponge24Air": 2048}
 
 
 def _nvidia_smi(fields: str) -> str:
@@ -206,14 +242,22 @@ def main() -> int:
         build_chip_instances,
         merge_guest_outputs,
     )
+    from zktls_tpu_torch.core import cbor
     from zktls_tpu_torch.stark.machine import preprocessed_root
+    from zktls_tpu_torch.stark.recursion import (
+        RecursionVK,
+        recursion_prove,
+        recursion_verify,
+    )
     from zktls_tpu_torch.stark.verifier import VerificationError
     from zktls_tpu_torch.utils import native
     from zktls_tpu_torch.workload import (
         BATCHES,
+        COMPRESSES,
         SESSIONS,
         FixedMulAir,
         preprocessed_machine,
+        sha_compress_machine,
         sha_machine,
     )
 
@@ -250,11 +294,14 @@ def main() -> int:
           "seeded states each (0 and p - 1 among them)")
 
     # 3. each entry point against its plain version on the card
-    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
 
     def rand_field(*shape):
-        return bb.from_numpy(bb.np_to_mont(
-            rng.integers(0, bb.P, shape, dtype=np.uint32)), dev)
+        """Seeded uniform field values (Montgomery form), made on the card:
+        the largest matrices held below are 2^25 rows."""
+        return bb.to_mont(torch.randint(0, bb.P, shape, generator=gen,
+                                        dtype=bb.DTYPE, device=dev))
 
     def abs_err(got, want):
         _require(got.shape == want.shape and got.dtype == want.dtype,
@@ -264,9 +311,12 @@ def main() -> int:
 
     errs = {"permute": 0, "hash_rows": 0, "merkle_levels": 0}
 
+    session_proofs = {}
+
     def session_path(name: str, covered: set) -> dict:
         """Phases 6 and 7 for one committed session; returns the K1
-        launches of its warm prove."""
+        launches of its warm prove and keeps (journal, proof) in
+        session_proofs."""
         spec = SESSIONS[name]
         tag = f"session {name}:"
         guest_input = GuestInput.from_cbor(spec.guest_input.read_bytes())
@@ -378,6 +428,7 @@ def main() -> int:
         else:
             raise RuntimeError(f"{tag} the proof verified against a "
                                "tampered journal")
+        session_proofs[name] = (journal, blob)
         return warm_launches
 
     def hold_k1_at(tag: str, shapes: list, covered: set) -> None:
@@ -388,12 +439,17 @@ def main() -> int:
                 continue
             covered.add((n, w))
             rows = rand_field(n, w)
-            err = abs_err(mk.hash_rows(rows), mk.hash_rows_plain(rows))
+            got = mk.hash_rows(rows)
+            # rows hash independently: the plain version runs in row
+            # blocks, so its temporaries stay small at 2^25 rows
+            err = max(abs_err(got[r0 : r0 + PLAIN_ROWS],
+                              mk.hash_rows_plain(rows[r0 : r0 + PLAIN_ROWS]))
+                      for r0 in range(0, n, PLAIN_ROWS))
             errs["hash_rows"] = max(errs["hash_rows"], err)
             _require(err == 0, f"hash_rows != plain at ({n}, {w})")
             print(f"{tag} kernel: hash_rows == plain at ({n}, {w}), {chip} "
                   f"{what} LDE, max abs err {err}")
-            del rows
+            del rows, got
         n_tree = max(n for _, _, n, _ in shapes)
         if ("tree", n_tree) in covered:
             return
@@ -689,6 +745,125 @@ def main() -> int:
               f"verified with the vk root; without it rejected ({missing}); "
               "spill_bytes=0, chunked_deep_bytes=0 give the same bytes")
 
+    def compress_path(covered: set) -> dict:
+        """Phase 10: the mid-scale compress against its CPU bytes, then
+        the compress of the 0x1303 session's proof at full width; returns
+        the K1 launches of StarkGuestProver.compress."""
+        tag = "compress sha:"
+        inst, msgs, binding = sha_compress_machine()
+        t0 = time.perf_counter()
+        inner = prove_machine([inst], binding, DEFAULT_CONFIG, device=dev)
+        timings: dict = {}
+        vk, outer = recursion_prove([Sha256Air()], inner, binding, msgs,
+                                    DEFAULT_CONFIG, DEFAULT_CONFIG,
+                                    timings=timings, device=dev)
+        blob = outer.to_bytes()
+        digest = hashlib.sha256(blob).hexdigest()
+        got = {c.name: 1 << c.log_n for c in outer.chips}
+        print(f"{tag} Sha256Air {inst.trace.shape[0]}x{inst.trace.shape[1]} "
+              f"inner proof and recursion_prove on the card "
+              f"{time.perf_counter() - t0:.2f} s: {vk.n_instrs} "
+              f"instructions, outer chips {got}; outer proof {len(blob)} "
+              f"bytes, sha256 {digest}")
+        _require(vk.n_instrs == SHA_COMPRESS_INSTRS,
+                 f"{tag} the program has {vk.n_instrs} instructions")
+        _require(got == SHA_COMPRESS_CHIPS, f"{tag} the outer chips are {got}")
+        _require(digest == COMPRESS_PROOF_SHA256,
+                 f"{tag} the card's outer proof differs from the CPU proof's "
+                 "digest")
+        _require(recursion_verify([Sha256Air()], vk,
+                                  MachineProof.from_bytes(blob), binding,
+                                  msgs, DEFAULT_CONFIG, DEFAULT_CONFIG),
+                 f"{tag} recursion_verify rejected the outer proof")
+        print(f"{tag} outer proof == the CPU proof's digest; "
+              "recursion_verify ok")
+
+        # the full-width compress: the 0x1303 session's card proof
+        spec = COMPRESSES["compress_1303"]
+        tag = "compress 1303:"
+        if spec.session not in session_proofs:
+            session_path(spec.session, covered)
+        journal, proof = session_proofs[spec.session]
+        _require(hashlib.sha256(proof).hexdigest()
+                 == SESSION_PROOF_SHA256[spec.session],
+                 f"{tag} the inner proof is not the session's")
+        shapes = []
+        for name, n, w, pre_w, perm_w in spec.chips:
+            lde_rows = n << DEFAULT_CONFIG.log_blowup
+            shapes += [(name, what, lde_rows, cols) for what, cols in (
+                ("trace", w), ("preprocessed", pre_w), ("perm", perm_w),
+                ("quotient", 4 * DEFAULT_CONFIG.blowup)) if cols]
+        hold_k1_at(tag, shapes, covered)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        timings = {}
+        k1.reset_launches()
+        p2.plain_calls = 0
+        t0 = time.perf_counter()
+        blob = StarkGuestProver().compress(journal, proof, timings=timings)
+        torch.cuda.synchronize(dev)
+        compress_s = time.perf_counter() - t0
+        launches, plain = dict(k1.launches), p2.plain_calls
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        for entry in ("hash_rows", "merkle_levels"):
+            _require(launches[entry] > 0,
+                     f"{tag} compress launched {entry} no time")
+        _require(plain == 0, f"{tag} compress ran the plain Poseidon2")
+        obj = cbor.loads(blob)
+        vk = RecursionVK.from_bytes(obj["vk"])
+        outer = MachineProof.from_bytes(obj["proof"])
+        got = {c.name: 1 << c.log_n for c in outer.chips}
+        _require(vk.n_instrs == spec.instrs,
+                 f"{tag} the program has {vk.n_instrs} instructions")
+        _require(got == {name: n for name, n, *_ in spec.chips},
+                 f"{tag} the outer chips are {got}")
+        digest = hashlib.sha256(blob).hexdigest()
+        print(f"{tag} StarkGuestProver.compress {compress_s:.2f} s: "
+              f"{vk.n_instrs} instructions, {vk.n_pubs} public inputs, outer "
+              f"chips {got}")
+        print(f"{tag} build_program {timings['build_program']:.2f} s")
+        print(f"{tag} outer_chips (vm_trace, sponge_trace) "
+              f"{timings['outer_chips']:.2f} s")
+        print(f"{tag} outer prove_machine "
+              f"{sum(timings[k] for k in STAGES):.2f} s: " + ", ".join(
+                  f"{k} {timings[k]:.3f}" for k in STAGES))
+        print(f"{tag} vk_from_prog {timings['vk_from_prog']:.2f} s")
+        print(f"{tag} peak device memory {peak:.2f} GiB; blob {len(blob)} "
+              f"bytes, sha256 {digest}; K1 launches {launches}, total "
+              f"{sum(launches.values())}, plain calls {plain}")
+        cache = Path(__file__).resolve().parent / "build" / (
+            f"vk-cache-{os.getpid()}")
+        shutil.rmtree(cache, ignore_errors=True)
+        try:
+            for label in ("cold", "cached"):
+                t0 = time.perf_counter()
+                _require(StarkGuestProver().verify_compressed(
+                    journal, blob, cache_dir=str(cache)),
+                    f"{tag} verify_compressed ({label}) rejected the blob")
+                print(f"{tag} verify_compressed ({label} vk cache) "
+                      f"{time.perf_counter() - t0:.2f} s ok")
+            entries = list(cache.glob("rvk-*.bin"))
+            _require(len(entries) == 1, f"{tag} the vk cache holds {entries}")
+            trusted = RecursionVK.from_bytes(entries[0].read_bytes())
+            _require(trusted.program_root == vk.program_root,
+                     f"{tag} the verifier derived another program root")
+            bad, pos = _tamper_filtered(journal)
+            t0 = time.perf_counter()
+            try:
+                StarkGuestProver().verify_compressed(bad, blob,
+                                                     cache_dir=str(cache))
+            except VerificationError as e:
+                print(f"{tag} the verifier's own program root == the blob's; "
+                      f"journal with filtered byte {pos} changed rejected in "
+                      f"{time.perf_counter() - t0:.2f} s ({e}); total "
+                      f"{time.perf_counter() - t_start:.1f} s")
+            else:
+                raise RuntimeError(f"{tag} the blob verified against a "
+                                   "tampered journal")
+        finally:
+            shutil.rmtree(cache, ignore_errors=True)
+        return launches
+
     launches_by_path = {}
     if "sha" in paths:
         launches_by_path.update(sha_path())
@@ -701,20 +876,23 @@ def main() -> int:
             launches_by_path[name] = session_path(name, covered)
     if "preprocessed" in paths:
         preprocessed_path()
-    # 9. the batches; c02f_x8 is the slice's full-width path
+    # 9. the batches
     for name, tamper in (("c02f_x2", 1), ("c02f_x8", 4)):
         if name in paths:
             launches_by_path[name] = batch_path(name, covered, tamper)
+    # 10. the compress rung, the slice's full-width path
+    if "compress" in paths:
+        launches_by_path["compress"] = compress_path(covered)
     if args.only is not None:
         print(f"--only {','.join(paths)}: done in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
     launches = {"permute": launches_by_path["grinding"]["permute"],
-                **{k: launches_by_path["c02f_x8"][k]
+                **{k: launches_by_path["compress"][k]
                    for k in ("hash_rows", "merkle_levels")}}
 
-    # 10. kernels (launches: the c02f_x8 batch's prove; permute: the
-    # grinding path's, its one caller)
+    # 11. kernels (launches: the compress's; permute: the grinding path's,
+    # its one caller)
     print(json.dumps({"kernels": [{
         "name": f"poseidon2_{name}",
         "route": "cuda",
@@ -731,7 +909,7 @@ def main() -> int:
         "bound_by": b["bound_by"],
         "library_ms": None,
     } for name, (_, ms, plain_ms, b) in timed.items()]}))
-    # 11. result
+    # 12. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

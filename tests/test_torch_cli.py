@@ -148,9 +148,9 @@ def test_prove_missing_input_file(capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["prove", "--network"], ["prove", "--compress"], ["prove", "--wrap"],
+    ["prove", "--network"], ["prove", "--wrap"],
     ["prove"], ["serve"], ["export-verifier"]],
-    ids=["network", "compress", "wrap", "live", "serve", "export-verifier"])
+    ids=["network", "wrap", "live", "serve", "export-verifier"])
 def test_unported_modes_exit_1(request_json, capsys, extra):
     """Live recording (no --fixture) and the modes beyond the machine proof
     are refused with a message, not run some other way."""
@@ -161,6 +161,64 @@ def test_unported_modes_exit_1(request_json, capsys, extra):
             args += ["--fixture", str(SESSION_GUEST_INPUT)]
     assert main(args) == 1
     assert "not ported yet" in capsys.readouterr().err
+
+
+def test_prove_compress_compresses_then_verifies(anchored, request_json,
+                                                 monkeypatch, capsys,
+                                                 reference):
+    """`prove -p stark --compress`: the prover's compress, then its
+    verify_compressed, each on the bytes the step before gave; the
+    compressed blob is what the command prints.  The prover runs on the
+    CPU with its machine proof and recursion stubbed."""
+    calls = []
+
+    class _Prover(tstark.StarkGuestProver):
+        def __init__(self):
+            super().__init__(device="cpu")
+
+        def prove(self, guest_input, timings=None):
+            journal = tstark.run_guest(guest_input).journal
+            calls.append(("prove", journal))
+            return journal, b"inner proof"
+
+        def compress(self, journal, proof, outer_config=None,
+                     timings=None):
+            calls.append(("compress", journal, proof))
+            return b"compressed blob"
+
+        def verify_compressed(self, journal, blob, outer_config=None,
+                              cache_dir=None):
+            calls.append(("verify_compressed", journal, blob))
+            return True
+
+    monkeypatch.setattr(tstark, "StarkGuestProver", _Prover)
+    assert main(["prove", "-i", request_json, "-p", "stark", "--fixture",
+                 str(SESSION_GUEST_INPUT), "--compress"]) == 0
+    journal = reference[0]
+    assert calls == [("prove", journal),
+                     ("compress", journal, b"inner proof"),
+                     ("verify_compressed", journal, b"compressed blob")]
+    assert capsys.readouterr().out.splitlines()[-1] == \
+        "proof: 0x" + b"compressed blob".hex()
+
+
+def test_prove_mock_compress_as_the_reference(anchored, request_json,
+                                              monkeypatch, capsys):
+    """`--mock --compress`: the mock proof is empty, so both CLIs skip the
+    compress step and print the same lines; a prover without `compress`
+    that returns proof bytes gets the reference's "--compress needs the
+    stark prover" (exit code 2)."""
+    args = ["prove", "-i", request_json, "--mock", "--compress",
+            "--fixture", str(SESSION_GUEST_INPUT)]
+    assert main(args) == 0
+    printed = capsys.readouterr().out
+    assert jmain(args) == 0
+    assert capsys.readouterr().out == printed
+    assert printed.splitlines()[-1] == "proof: 0x"
+    monkeypatch.setattr(MockProver, "prove",
+                        lambda self, gi: (b"journal", b"proof"))
+    assert main(args) == 2
+    assert "--compress needs the stark prover" in capsys.readouterr().err
 
 
 def test_stark_prover_proves_the_reference_chips(anchored, monkeypatch,
@@ -226,14 +284,17 @@ def test_cli_replays_without_jax_or_cryptography(request_json):
 
 
 def test_native_and_batch_path_without_jax_or_cryptography():
-    """The host Poseidon2 library and the batch path (two sessions' replays,
-    merge_guest_outputs, build_chip_instances, batch_public_messages) in a
-    process of their own import no module of jax, zktls_tpu or
-    cryptography."""
+    """The host Poseidon2 library, the batch path (two sessions' replays,
+    merge_guest_outputs, build_chip_instances, batch_public_messages) and
+    the compress rung's modules in a process of their own import no module
+    of jax, zktls_tpu or cryptography."""
     code = (
         "import sys\n"
         "from zktls_tpu_torch.ops.poseidon2 import Poseidon2\n"
         "from zktls_tpu_torch.provers import stark\n"
+        "from zktls_tpu_torch.stark import debug, recursion\n"
+        "from zktls_tpu_torch.stark.chips import bytes_table\n"
+        "from zktls_tpu_torch import profile_prove\n"
         "from zktls_tpu_torch.workload import batch_machine\n"
         "assert len(Poseidon2(24).permute_ints(list(range(24)))) == 24\n"
         "chips, journals = batch_machine('c02f_x2')\n"

@@ -5,13 +5,14 @@ commands/prove.rs:14-48):
 
   python -m zktls_tpu_torch.cli prove -i <request.json> -t <chain>
               [-p <prover>] [--mock | --local] --fixture <recorded.cbor>
-              [-o <out.json>]
+              [--compress] [-o <out.json>]
 
 Port of zktls_tpu.cli (same flags, output lines and JSON file).  `--fixture`
 replays a recorded session tape; the STARK prover runs on the CUDA card.
-Not ported yet, and each reported as an error (exit code 1): live
-recording (no `--fixture`), `--network`, `--compress`, `--wrap`, and the
-`serve` and `export-verifier` commands.
+`--compress` wraps the machine proof in the recursion layer and verifies
+it through the vk fast path.  Not ported yet, and each reported as an
+error (exit code 1): live recording (no `--fixture`), `--network`,
+`--wrap`, and the `serve` and `export-verifier` commands.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ def cmd_prove(args) -> int:
         print(f"error: input file {args.input!r} does not exist",
               file=sys.stderr)
         return 2
-    for flag in ("network", "compress", "wrap"):
+    for flag in ("network", "wrap"):
         if getattr(args, flag):
             raise _not_ported(f"--{flag}")
     guest_input = _load_guest_input(args)
@@ -82,6 +83,15 @@ def cmd_prove(args) -> int:
         prover = StarkGuestProver()
 
     output, proof = prover.prove(guest_input)
+    if args.compress and proof:
+        if not hasattr(prover, "compress"):
+            print("error: --compress needs the stark prover",
+                  file=sys.stderr)
+            return 2
+        log.info("compressing: proving the verifier-VM recursion layer")
+        proof = prover.compress(output, proof)
+        assert prover.verify_compressed(output, proof)
+        log.info("compressed proof verified (vk fast path)")
     print(f"output: 0x{output.hex()}")
     print(f"proof: 0x{proof.hex()}")
     if args.output:
@@ -133,8 +143,7 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--fixture", help="recorded session CBOR to replay "
                     "(live recording is not ported yet)")
     pr.add_argument("--compress", action="store_true",
-                    help="wrap the machine proof in the recursion layer "
-                    "(not ported yet)")
+                    help="wrap the machine proof in the recursion layer")
     pr.add_argument("--wrap", action="store_true",
                     help="full chain to a Groth16 seal (not ported yet)")
     pr.add_argument("-o", "--output", help="write journal+proof JSON here")

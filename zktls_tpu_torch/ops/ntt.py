@@ -19,7 +19,13 @@ from . import babybear as bb
 from .field_ref import P, two_adic_root
 
 __all__ = ["ntt", "intt", "coset_lde", "coeffs_to_coset_evals",
-           "coset_coeffs", "bitrev_indices", "eval_domain", "powers"]
+           "coset_coeffs", "bitrev_indices", "eval_domain", "powers",
+           "np_batch_inverse", "LDE_BLOCK_BYTES"]
+
+#: `coset_lde` extends a matrix in column blocks of at most this many
+#: output bytes (int64): a whole (2^25, 40) perm extension, 10.7 GB, would
+#: hold several times its size in butterfly temporaries at once
+LDE_BLOCK_BYTES = float(1 << 32)
 
 
 def powers(base: int, n: int) -> np.ndarray:
@@ -35,6 +41,32 @@ def powers(base: int, n: int) -> np.ndarray:
         bk = bk * bk % P
         k *= 2
     return out[:n]
+
+
+def np_batch_inverse(vals: np.ndarray) -> np.ndarray:
+    """Inverses of nonzero field values (plain form, any integer dtype) as
+    uint64 numpy: `field_ref.batch_inverse` over a product tree — the
+    pairwise products level by level up, one inverse at the root, each
+    node's inverse times its sibling level by level down — so 3n
+    vectorized products instead of n Python ones."""
+    levels = [np.asarray(vals, dtype=np.uint64) % np.uint64(P)]
+    while levels[-1].shape[0] > 1:
+        x = levels[-1]
+        if x.shape[0] % 2:
+            x = np.append(x, np.uint64(1))
+        levels.append(x[0::2] * x[1::2] % np.uint64(P))
+    if not levels[-1].shape[0]:
+        return levels[-1]
+    inv = np.array([pow(int(levels[-1][0]), P - 2, P)], dtype=np.uint64)
+    for x in reversed(levels[:-1]):
+        m = x.shape[0]
+        if m % 2:
+            x = np.append(x, np.uint64(1))
+        out = np.empty(x.shape[0], dtype=np.uint64)
+        out[0::2] = inv * x[1::2] % np.uint64(P)
+        out[1::2] = inv * x[0::2] % np.uint64(P)
+        inv = out[:m]
+    return inv
 
 
 @lru_cache(maxsize=None)
@@ -122,8 +154,22 @@ def coset_lde(values: torch.Tensor, log_blowup: int, shift: int
               ) -> torch.Tensor:
     """Low-degree extension: `values` (n, C) are evaluations on the size-n
     subgroup; return evaluations on the coset shift·H of the size
-    n·2^log_blowup subgroup.  Montgomery in/out."""
-    return coeffs_to_coset_evals(intt(values), log_blowup, shift)
+    n·2^log_blowup subgroup.  Montgomery in/out.
+
+    A matrix whose extension passes LDE_BLOCK_BYTES (int64) is extended in
+    column blocks of at most that many bytes, written into one output:
+    columns are independent, so the values are the same, and the
+    butterflies' temporaries are a block's, not the whole matrix's."""
+    N = values.shape[0] << log_blowup
+    cols = values.shape[1] if values.ndim == 2 else 1
+    if 8 * N * cols <= LDE_BLOCK_BYTES:
+        return coeffs_to_coset_evals(intt(values), log_blowup, shift)
+    step = max(1, int(LDE_BLOCK_BYTES // (8 * N)))
+    out = torch.empty((N, cols), dtype=values.dtype, device=values.device)
+    for c0 in range(0, cols, step):
+        out[:, c0 : c0 + step] = coeffs_to_coset_evals(
+            intt(values[:, c0 : c0 + step]), log_blowup, shift)
+    return out
 
 
 def coset_coeffs(values: torch.Tensor, shift: int) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Where the time of one prove goes, on the card.
 
     python3 -m zktls_tpu_torch.profile_prove [--workload sha|c02f|1302|1303|
-        c02f_x2|c02f_x8] [--spill-bytes B] [--chunked-deep-bytes B]
-        [--profiler torch|cprofile|none]
+        c02f_x2|c02f_x8|compress_1303|compress_c02f] [--spill-bytes B]
+        [--chunked-deep-bytes B] [--profiler torch|cprofile|none]
 
 Proves a machine at DEFAULT_CONFIG three times — `sha` (the default): the
 32768 × 639 Sha256Air machine of chip_smoke.py's first path; `c02f` (or
@@ -25,6 +25,15 @@ sum beside the least time the card could take for the same permutations
 device time by kind of activity (torch elementwise kernels, `cat`, copies,
 …), and the top activities; with cprofile, the third prove's wall and
 the host functions that took the most time in themselves.
+
+`compress_1303`, `compress_c02f` (`workload.COMPRESSES`): the session's
+machine proved on the card, then compressed by
+`StarkGuestProver.compress` twice — the first with its seconds per stage
+(`build_program`, `outer_chips`, the outer prove's stages,
+`vk_from_prog`), peak device memory and the process's peak resident
+memory, the outer chips and the blob's size and SHA-256; the second
+profiled as above (`cprofile`: its host functions; `none`: no second
+compress).
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from .stark.machine import (
 )
 from .workload import (
     BATCHES,
+    COMPRESSES,
     SESSIONS,
     batch_machine,
     session_machine,
@@ -59,19 +69,24 @@ from .workload import (
 SEED = 20261016
 
 
-def _poseidon2_work(chips: list[tuple[int, int, int]], config
-                    ) -> dict[int, int]:
+def _poseidon2_work(chips: list[tuple[int, ...]], config,
+                    vk_commits: int = 0) -> dict[int, int]:
     """States per Poseidon2 width that one prove of a machine of `chips`
-    ((rows, width, perm width) each) hashes: each committed matrix (trace,
-    perm, quotient, every FRI layer's pair rows) costs ceil(w/16) width-24
-    leaf absorbs per row and rows − 1 width-16 compressions."""
+    ((rows, width, perm width[, preprocessed width]) each) hashes: each
+    committed matrix (trace, preprocessed, perm, quotient, every FRI
+    layer's pair rows) costs ceil(w/16) width-24 leaf absorbs per row and
+    rows − 1 width-16 compressions.  vk_commits: how many more times each
+    preprocessed matrix is committed for a verifying key (the compress
+    commits its program once more)."""
     mats = []
-    for n_rows, width, perm_width in chips:
+    for n_rows, width, perm_width, *pre in chips:
         big = n_rows << config.log_blowup
         mats += [(big, width), (big, 4 * config.blowup)]
         if perm_width:
             mats.append((big, perm_width))
-    size = max(n for n, _, _ in chips) << config.log_blowup
+        if pre and pre[0]:
+            mats += [(big, pre[0])] * (1 + vk_commits)
+    size = max(c[0] for c in chips) << config.log_blowup
     while size > config.fri_final_size:
         mats.append((size // 2, 8))
         size //= 2
@@ -129,7 +144,8 @@ def _device_rows(prof) -> list[tuple[str, int, float]]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", default="sha",
-                    choices=("sha", "session", *SESSIONS, *BATCHES))
+                    choices=("sha", "session", *SESSIONS, *BATCHES,
+                             *COMPRESSES))
     ap.add_argument("--spill-bytes", type=float, default=SPILL_BYTES,
                     help="prove_machine's host-spill limit (default "
                          f"{SPILL_BYTES:g})")
@@ -153,6 +169,8 @@ def main() -> int:
         check=True).stdout.strip().rsplit(",", 1)
     clock_mhz = float(clock.split()[0])
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if args.workload in COMPRESSES:
+        return compress_main(args, dev, card, sms, clock_mhz)
     if args.workload == "sha":
         inst, _ = sha_machine(8, 3000, SEED)
         chips, binding = [inst], b"chip-smoke sha256 machine"
@@ -193,19 +211,34 @@ def main() -> int:
         print(json.dumps(result))
         return 0
     if args.profiler == "cprofile":
-        host = cProfile.Profile()
-        host.enable()
-        profiled_s = prove()
-        host.disable()
-        top = sorted(pstats.Stats(host).stats.items(),
-                     key=lambda kv: -kv[1][2])[:30]
-        print(json.dumps({**result, "profiled_prove_s": profiled_s,
-                          "host_top_self": [{
-                              "function": f"{f}:{line}({name})",
-                              "calls": calls, "self_s": tt, "cum_s": ct}
-                              for (f, line, name), (_, calls, tt, ct, _)
-                              in top]}))
+        print(json.dumps({**result, **_cprofiled(prove)}))
         return 0
+    print(json.dumps({**result, **_profiled(
+        prove, [(c.trace.shape[0], c.air.width, c.air.perm_width)
+                for c in chips], sms, clock_mhz)}))
+    return 0
+
+
+def _cprofiled(prove) -> dict:
+    """Run `prove` under cProfile: its wall seconds and the host functions
+    that took the most time in themselves."""
+    host = cProfile.Profile()
+    host.enable()
+    profiled_s = prove()
+    host.disable()
+    top = sorted(pstats.Stats(host).stats.items(),
+                 key=lambda kv: -kv[1][2])[:30]
+    return {"profiled_prove_s": profiled_s, "host_top_self": [{
+        "function": f"{f}:{line}({name})", "calls": calls, "self_s": tt,
+        "cum_s": ct} for (f, line, name), (_, calls, tt, ct, _) in top]}
+
+
+def _profiled(prove, chips, sms: int, clock_mhz: float,
+              vk_commits: int = 0) -> dict:
+    """Run `prove` under torch.profiler: its wall and device seconds, the
+    device-busy share, device time by kind and per Poseidon2 entry point
+    beside the bound for a machine of `chips` (as `_poseidon2_work`
+    takes them), and the top device activities."""
     cuda_poseidon2.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -214,11 +247,8 @@ def main() -> int:
     rows = _device_rows(prof)
     device_us = sum(r[2] for r in rows)
     k1 = _by_entry_point(rows, cuda_poseidon2.launches)
-    states = _poseidon2_work(
-        [(c.trace.shape[0], c.air.width, c.air.perm_width) for c in chips],
-        DEFAULT_CONFIG)
-    print(json.dumps({
-        **result,
+    states = _poseidon2_work(chips, DEFAULT_CONFIG, vk_commits)
+    return {
         "profiled_prove_s": profiled_s,
         "device_s": device_us / 1e6,
         "device_busy_share": device_us / 1e6 / profiled_s,
@@ -233,7 +263,78 @@ def main() -> int:
             for name, w in (("hash_rows", 24), ("merkle_levels", 16))},
         "top_device": [{"name": n[:90], "count": c, "ms": us / 1e3}
                        for n, c, us in rows[:25]],
-    }))
+    }
+
+
+def compress_main(args, dev, card: str, sms: int, clock_mhz: float) -> int:
+    """The compress workloads (module docstring)."""
+    import hashlib
+    import resource
+
+    from .core import cbor
+    from .provers.stark import StarkGuestProver
+    from .stark.machine import MachineProof
+    from .stark.recursion import outer_airs
+
+    spec = COMPRESSES[args.workload]
+    t0 = time.perf_counter()
+    chips, journal = session_machine(spec.session)
+    session_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inner = prove_machine(chips, journal, DEFAULT_CONFIG,
+                          device=dev).to_bytes()
+    torch.cuda.synchronize(dev)
+    inner_s = time.perf_counter() - t0
+    del chips
+    prover = StarkGuestProver(device=dev)
+    peaks = []
+    outs = []
+
+    def compress(timings=None):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        outs.append(prover.compress(
+            journal, inner, timings=timings, spill_bytes=args.spill_bytes,
+            chunked_deep_bytes=args.chunked_deep_bytes))
+        torch.cuda.synchronize(dev)
+        peaks.append(torch.cuda.max_memory_allocated(dev) / 2**30)
+        return time.perf_counter() - t0
+
+    stages: dict = {}
+    cold_s = compress(stages)
+    blob = outs[0]
+    outer = MachineProof.from_bytes(cbor.loads(blob)["proof"])
+    result = {
+        "card": card,
+        "workload": args.workload,
+        "inner_session": spec.session,
+        "session_machine_s": session_s,
+        "inner_prove_s": inner_s,
+        "inner_proof_sha256": hashlib.sha256(inner).hexdigest(),
+        "outer_chips": {c.name: 1 << c.log_n for c in outer.chips},
+        "spill_bytes": args.spill_bytes,
+        "chunked_deep_bytes": args.chunked_deep_bytes,
+        "compress_s": cold_s,
+        "compress_stages_s": stages,
+        "peak_device_gib": peaks[0],
+        "blob_bytes": len(blob),
+        "blob_sha256": hashlib.sha256(blob).hexdigest(),
+        "host_peak_rss_gib":
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+    }
+    if args.profiler == "cprofile":
+        result.update(_cprofiled(compress))
+    elif args.profiler == "torch":
+        airs = {a.name: a for a in outer_airs()}
+        result.update(_profiled(
+            compress, [(1 << c.log_n, airs[c.name].width,
+                        airs[c.name].perm_width,
+                        getattr(airs[c.name], "preprocessed_width", 0))
+                       for c in outer.chips], sms, clock_mhz, vk_commits=1))
+    if args.profiler != "none":
+        result["profiled_peak_device_gib"] = peaks[1]
+        result["profiled_blob_equal"] = outs[1] == blob
+    print(json.dumps(result))
     return 0
 
 

@@ -8,6 +8,10 @@ the CUDA card (or on the device the caller names).  Every suite the
 reference proves has its chips: AES-128/256-GCM with SHA-256 or SHA-384,
 and ChaCha20-Poly1305, over TLS 1.2 and TLS 1.3.
 
+The compress rung (`compress` / `verify_compressed`): the session proof
+verified inside a recursion proof (stark/recursion.py), its outer machine
+proved on the prover's device.
+
 Batches (`prove_batch` / `verify_batch`): several sessions' witnesses
 merged into one chip workload (`merge_guest_outputs`) and proved as ONE
 machine proof bound to the concatenated journals.  The merge is the
@@ -37,6 +41,8 @@ from ..core.types import GuestInput
 from ..guest.program import GuestOutput, run_guest
 from ..stark.config import DEFAULT_CONFIG, StarkConfig
 from ..stark.machine import (
+    CHUNKED_DEEP_BYTES,
+    SPILL_BYTES,
     ChipInstance,
     MachineProof,
     _resolve_device,
@@ -511,6 +517,76 @@ class StarkGuestProver:
             journal_airs(journal, mp), mp, binding=journal,
             public_messages=journal_public_messages(journal),
             config=self.config)
+
+    # -- recursion: the compress rung (stark/recursion.py) ----------------
+
+    def compress(self, journal: bytes, proof: bytes,
+                 outer_config: StarkConfig | None = None,
+                 timings: dict | None = None,
+                 spill_bytes: float = SPILL_BYTES,
+                 chunked_deep_bytes: float = CHUNKED_DEEP_BYTES) -> bytes:
+        """Wrap a machine proof in a recursion proof on the prover's
+        device: the verifier-VM machine (VmAir + sponge chips, program in
+        vk-committed preprocessed columns) verifies it in-circuit.
+        Returns a self-describing blob {vk, proof}; verify with
+        `verify_compressed(journal, blob)`.  timings, spill_bytes,
+        chunked_deep_bytes: as `recursion_prove`'s."""
+        from ..core import cbor
+        from ..stark.recursion import recursion_prove
+
+        mp = MachineProof.from_bytes(proof)
+        vk, outer = recursion_prove(
+            journal_airs(journal, mp), mp, journal,
+            public_messages=journal_public_messages(journal),
+            inner_config=self.config,
+            outer_config=outer_config or self.config,
+            timings=timings, device=self.device, spill_bytes=spill_bytes,
+            chunked_deep_bytes=chunked_deep_bytes)
+        return cbor.dumps({"vk": vk.to_bytes(),
+                           "proof": outer.to_bytes()})
+
+    def verify_compressed(self, journal: bytes, blob: bytes,
+                          outer_config: StarkConfig | None = None,
+                          cache_dir: str | None = None) -> bool:
+        """Verify a compressed (recursion) proof.  The blob's vk is used
+        only as a SHAPE carrier: the program root is re-derived locally
+        (once per statement geometry, on the prover's device, then cached
+        on disk under `cache_dir` — recursion.trusted_vk), so a forged
+        program can never smuggle in its own root.  Verification is then
+        O(outer proof)."""
+        from ..core import cbor
+        from ..stark.recursion import (
+            RecursionVK,
+            recursion_verify,
+            trusted_vk,
+        )
+        from ..stark.verifier import VerificationError
+
+        obj = cbor.loads(blob)
+        shape = RecursionVK.from_bytes(obj["vk"]).shape
+        # required-chip policy matches the direct path: the shape's chip
+        # set must satisfy the journal's requirements
+        names = {n for n, _l, _p in shape.chips}
+        registry = _air_registry()
+        unknown = names - set(registry)
+        if unknown:
+            raise VerificationError(f"unknown chips in shape: {unknown}")
+        airs = [registry[n]() for n in names]
+
+        class _P:
+            chips = [type("C", (), {"name": n})() for n in names]
+
+        journal_airs(journal, _P())   # raises if required chips missing
+        msgs = journal_public_messages(journal)
+        vk = trusted_vk(airs, shape, journal, msgs,
+                        inner_config=self.config,
+                        outer_config=outer_config or self.config,
+                        cache_dir=cache_dir, device=self.device)
+        return recursion_verify(
+            airs, vk, MachineProof.from_bytes(obj["proof"]), journal,
+            public_messages=msgs,
+            inner_config=self.config,
+            outer_config=outer_config or self.config)
 
     # -- multi-session batching ------------------------------------------
 

@@ -3,7 +3,10 @@
 Every chip of a TLS session the reference proves — the AES-128/256-GCM,
 SHA-256/384 and ChaCha20-Poly1305 suites of TLS 1.2 and 1.3 — plus the
 ModMul chip's other width classes (one `ModMulAir` class at 384 bits and
-the RSA widths).  Not ported: the recursion chips (sponge, VM).
+the RSA widths).  The recursion chips (`vm.VmAir`, `sponge.Sponge16Air`,
+`sponge.Sponge24Air`) and `bytes_table.ByteRangeAir` are ported beside
+them but, as in the reference's registry, not registered: the compress
+rung builds its outer machine from `stark.recursion.outer_airs()`.
 """
 
 from functools import partial

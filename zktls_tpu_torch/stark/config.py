@@ -1,5 +1,6 @@
 """STARK configuration and the commitment-coset selector tables (port copy
-of zktls_tpu.stark.config)."""
+of zktls_tpu.stark.config; the tables are the same values, computed with
+vectorized numpy instead of Python ints)."""
 
 from __future__ import annotations
 
@@ -8,8 +9,8 @@ from functools import lru_cache
 
 import numpy as np
 
-from ..ops.field_ref import GENERATOR, P, batch_inverse, two_adic_root
-from ..ops.ntt import eval_domain
+from ..ops.field_ref import GENERATOR, P, two_adic_root
+from ..ops.ntt import eval_domain, np_batch_inverse
 
 __all__ = ["StarkConfig", "DEFAULT_CONFIG", "selector_arrays"]
 
@@ -53,23 +54,24 @@ def selector_arrays(log_n: int, log_blowup: int, shift: int):
     """
     n = 1 << log_n
     N = n << log_blowup
-    xs = eval_domain(log_n + log_blowup, shift).astype(object)
+    p = np.uint64(P)
+    xs = eval_domain(log_n + log_blowup, shift).astype(np.uint64)
     g_last = pow(two_adic_root(log_n), n - 1, P)
-    zh = [(pow(int(x), n, P) - 1) % P for x in xs]
-    x_m1 = [(int(x) - 1) % P for x in xs]
-    x_mg = [(int(x) - g_last) % P for x in xs]
-    inv_zh = batch_inverse(zh)
-    inv_x_m1 = batch_inverse(x_m1)
-    inv_x_mg = batch_inverse(x_mg)
+    # x_{i+B}^n = x_i^n · w_N^{B·n} = x_i^n for B = 2^log_blowup: Z_H takes
+    # B values, repeated
+    zh_b = np.array([(pow(int(x), n, P) - 1) % P
+                     for x in xs[: 1 << log_blowup]], dtype=np.uint64)
+    zh = np.tile(zh_b, n)
+    x_mg = (xs + p - np.uint64(g_last)) % p
+    inv_zh = np.tile(np_batch_inverse(zh_b), n)
     out = {
-        "x": np.array([int(v) for v in xs], dtype=np.uint32),
-        "z_h": np.array(zh, dtype=np.uint32),
-        "inv_z_h": np.array(inv_zh, dtype=np.uint32),
-        "is_first_row": np.array(
-            [z * iv % P for z, iv in zip(zh, inv_x_m1)], dtype=np.uint32),
-        "is_last_row": np.array(
-            [z * iv % P for z, iv in zip(zh, inv_x_mg)], dtype=np.uint32),
-        "is_transition": np.array(x_mg, dtype=np.uint32),
+        "x": xs.astype(np.uint32),
+        "z_h": zh.astype(np.uint32),
+        "inv_z_h": inv_zh.astype(np.uint32),
+        "is_first_row": (zh * np_batch_inverse((xs + p - np.uint64(1)) % p)
+                         % p).astype(np.uint32),
+        "is_last_row": (zh * np_batch_inverse(x_mg) % p).astype(np.uint32),
+        "is_transition": x_mg.astype(np.uint32),
     }
     assert len(out["x"]) == N
     return out

@@ -13,8 +13,8 @@ import torch
 
 from ..ops import babybear as bb
 from ..ops import ext as ex
-from ..ops.field_ref import Fp4, P, batch_inverse
-from ..ops.ntt import eval_domain
+from ..ops.field_ref import Fp4, P
+from ..ops.ntt import eval_domain, np_batch_inverse
 from ..ops.poseidon2 import permute_batch
 from .challenger import Challenger
 from .lookup import np_ext_powers
@@ -120,5 +120,5 @@ def _grind_device(ch: Challenger, pow_bits: int, device) -> int:
 def _inv_2x(log_size: int, shift: int) -> np.ndarray:
     """Montgomery (N/2,) array of 1/(2·x_j) for the layer domain."""
     xs = eval_domain(log_size, shift)[: (1 << log_size) // 2]
-    invs = batch_inverse([2 * int(x) % P for x in xs])
-    return bb.np_to_mont(np.array(invs, dtype=np.uint32))
+    invs = np_batch_inverse(2 * xs.astype(np.uint64) % P)
+    return bb.np_to_mont(invs.astype(np.uint32))

@@ -15,6 +15,11 @@
 * `preprocessed_machine(log_n)`: a FixedMulAir chip (y = c·x + d with
   (c, d) in preprocessed columns) beside a Fibonacci chip of half its
   height — the smallest machine with a preprocessed commit.
+* `COMPRESSES`: the compress rung of a committed session — its
+  DEFAULT_CONFIG machine proof verified inside the recursion machine
+  (`StarkGuestProver.compress`), with the program size and outer chips
+  that gives; `sha_compress_machine()`: the 256-row Sha256Air machine whose
+  compress chip_smoke.py holds to its CPU bytes.
 
 Each session is a loopback recording (scripts/record_session_c02f_p256.py
 --suite ...) with a 512-byte JSON body of which 10 bytes are filtered,
@@ -39,7 +44,8 @@ from .stark.machine import ChipInstance
 
 __all__ = ["sha_machine", "Session", "SESSIONS", "SESSION_GUEST_INPUT",
            "session_machine", "Batch", "BATCHES", "batch_machine",
-           "FixedMulAir", "preprocessed_machine"]
+           "FixedMulAir", "preprocessed_machine", "Compress", "COMPRESSES",
+           "sha_compress_machine"]
 
 DATA = Path(__file__).resolve().parent / "data"
 
@@ -142,6 +148,45 @@ BATCHES = {
          ("ModMul256Air", 65536, 324, 584),
          ("ModMulRsa2048Air", 256, 3832, 5120))),
 }
+
+
+@dataclass(frozen=True)
+class Compress:
+    """The compress rung of a committed session at DEFAULT_CONFIG."""
+
+    #: the inner session (a key of SESSIONS)
+    session: str
+    #: the verifier program's instruction count
+    instrs: int
+    #: (chip name, rows, columns, preprocessed columns, perm columns) of
+    #: the outer machine; rows are the program's and the sponge rows'
+    #: padding to a power of two
+    chips: tuple
+
+
+#: the compresses by name; instruction and sponge-row counts from the
+#: shape-only `build_program` of each session's chips (real sponge rows:
+#: 1303 30,671 / 33,372, c02f 37,205 / 41,400 at widths 16 / 24)
+COMPRESSES = {
+    "compress_1303": Compress(
+        "1303", 7689048,
+        (("VmAir", 8388608, 24, 28, 40), ("Sponge16Air", 32768, 555, 0, 112),
+         ("Sponge24Air", 65536, 1019, 0, 144))),
+    "compress_c02f": Compress(
+        "c02f", 8520286,
+        (("VmAir", 16777216, 24, 28, 40), ("Sponge16Air", 65536, 555, 0, 112),
+         ("Sponge24Air", 65536, 1019, 0, 144))),
+}
+#: the mid-scale compress's inner machine: chip_smoke.py's 256-row
+#: Sha256Air machine (2 seeded messages of 100 bytes) and its binding
+SHA_COMPRESS_SEED = 20261016
+SHA_COMPRESS_BINDING = b"chip-smoke sha256 machine"
+
+
+def sha_compress_machine() -> tuple[ChipInstance, list[tuple], bytes]:
+    """(the 256-row Sha256Air chip, its public messages, its binding)."""
+    inst, msgs = sha_machine(2, 100, SHA_COMPRESS_SEED)
+    return inst, msgs, SHA_COMPRESS_BINDING
 
 
 def sha_machine(count: int, size: int, seed: int
