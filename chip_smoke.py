@@ -8,10 +8,13 @@ without printing a result:
 
   1. the card's name and power limit (nvidia-smi);
   2. build the Poseidon2 kernels (K1: permute, hash_rows, merkle_levels)
-     from zktls_tpu_torch/csrc/, and the host Poseidon2 library
-     (csrc/poseidon2_host.c, the system C compiler); hold the library's
-     permute_batch against the pure-Python plain version at widths 16 and
-     24 on seeded states, exactly;
+     from zktls_tpu_torch/csrc/, the host Poseidon2 library
+     (csrc/poseidon2_host.c, the system C compiler) and the host MiMC
+     library (csrc/mimc_bn254_host.c, with OpenMP); hold the Poseidon2
+     library's permute_batch against the pure-Python plain version at
+     widths 16 and 24 on seeded states, and the MiMC library's rows hash
+     (its AVX-512 IFMA path where the CPU has one, and its scalar path)
+     against the pure-Python mimc_hash on seeded rows, exactly;
   3. hold each entry point against its plain torch version on the card,
      exactly: permute at widths 16 and 24, several batch sizes, rows inside
      a larger batch; hash_rows at several (N, W), the main path's
@@ -59,7 +62,7 @@ without printing a result:
      spill and chunked DEEP forced (spill_bytes=0, chunked_deep_bytes=0):
      the same bytes;
   9. the batches (workload.BATCHES), the c02f session twice (c02f_x2) and
-     eight times (c02f_x8, the slice's full-width path): replay each
+     eight times (c02f_x8): replay each
      session, merge and build the chips and require their shapes, hold
      hash_rows against its plain version at every LDE and perm shape no
      earlier phase held and merkle_levels at the batch's largest tree, then
@@ -74,7 +77,7 @@ without printing a result:
      and the identities of the larger chips passed; a journal batch with a
      changed filtered byte in the second (c02f_x2) or fifth (c02f_x8)
      session must fail earlier, at the global bus balance;
- 10. the compress rung (the slice's full-width path): first the mid-scale
+ 10. the compress rung (at full width): first the mid-scale
      compress — the 256-row Sha256Air machine of phase 5
      (workload.sha_compress_machine) proved on the card and compressed by
      recursion_prove on the card, inner and outer at DEFAULT_CONFIG: a
@@ -90,21 +93,42 @@ without printing a result:
      the launch counters reset just before and read just after, its
      build_program, outer_chips, outer prove_machine stages and
      vk_from_prog seconds, peak device memory, the blob's size and
-     SHA-256; the program must have 7,689,048 instructions and the outer
+     SHA-256 (which must equal COMPRESS_1303_SHA256, the blob of an
+     earlier card run: the compress has no CPU reference at this width);
+     the program must have 7,689,048 instructions and the outer
      chips VmAir 8,388,608, Sponge16Air 32,768 and Sponge24Air 65,536 rows
      (workload.COMPRESSES); verify_compressed with a fresh vk cache under
      build/ (cold: it rebuilds the program and derives the root, which must
      equal the blob's), again (cached), and against a journal with a
      changed filtered byte, which it must reject;
- 11. one JSON line describing each kernel (launches: the compress's;
+ 11. the shrink rung (the slice's full-width path): first the tiny chain
+     of tests/test_shrink_bn.py (workload.fib_chain: Fibonacci(5) proved
+     and compressed at a tiny config, then shrunk by recursion_prove_bn)
+     on the card: the shrink proof must hash to SHRINK_PROOF_SHA256 (the
+     JAX package's bytes for the same chain, which the port's CPU shrink
+     gives too) and verify.  Then the compress_1303 blob of phase 10 (its
+     digest required; compressed here if the compress path did not run)
+     shrunk at DEFAULT_CONFIG as the reference's StarkGuestProver.wrap
+     does (workload.shrink_statement), with the launch counters reset just
+     before and read just after: the program's instruction count and the
+     outer chips' rows (workload.SHRINKS), the seconds of build_program,
+     outer_chips, each prove_machine_bn stage and the host MiMC (mimc_s),
+     peak device memory, the host's cores and the MiMC
+     threads, the proof's bytes and SHA-256, and K1's launches (none: the
+     shrink commits with MiMC on the host).  recursion_verify_bn must
+     accept the proof after a bytes round trip of proof and vk, and reject
+     it against a journal with a changed filtered byte, a vk with a
+     changed program root, and a proof with one changed opened value;
+ 12. one JSON line describing each kernel (launches: the compress's;
      permute: the grinding path's, its one caller; every path's launches
      under "launches_by_path");
- 12. last line: {"ok": true, "device": {...}}.
+ 13. last line: {"ok": true, "device": {...}}.
 
 `--only` runs phases 1-3 and the named paths of sha, sessions,
-preprocessed, c02f_x2, c02f_x8, compress (a check while working on one of
-them; it prints neither the kernels line nor the result).  Needs one card,
-nvcc (/usr/local/cuda), a C compiler and no network.
+preprocessed, c02f_x2, c02f_x8, compress, shrink (a check while working on
+one of them; it prints neither the kernels line nor the result; shrink
+runs compress first unless it was named).  Needs one card, nvcc
+(/usr/local/cuda), a C compiler with OpenMP and no network.
 """
 
 from __future__ import annotations
@@ -151,7 +175,7 @@ BATCH_PROOF_SHA256 = {
 PARSER_FAULT = "StreamParserAir: constraint identity failed at zeta"
 #: the optional paths, in the order they run
 PATHS = ("sha", "sessions", "preprocessed", "c02f_x2", "c02f_x8",
-         "compress")
+         "compress", "shrink")
 #: rows per block of a plain hash_rows held against the kernel
 PLAIN_ROWS = 1 << 21
 #: SHA-256 of the port's DEFAULT_CONFIG compress of the 256-row Sha256Air
@@ -163,6 +187,15 @@ COMPRESS_PROOF_SHA256 = (
 SHA_COMPRESS_INSTRS = 256047
 SHA_COMPRESS_CHIPS = {"VmAir": 262144, "Sponge16Air": 4096,
                       "Sponge24Air": 2048}
+#: SHA-256 of the 0x1303 session's DEFAULT_CONFIG compress blob
+#: (StarkGuestProver.compress of the SESSION_PROOF_SHA256["1303"] proof)
+COMPRESS_1303_SHA256 = (
+    "35c6381590dfcaacc2d997f9ec7bc80545c56d4239fe2df543ca935deedca80a")
+#: SHA-256 of the JAX package's shrink proof of tests/test_shrink_bn.py's
+#: chain (python scripts/session_proof_cpu.py --shrink fib, which proves
+#: the chain with both packages and requires the same bytes)
+SHRINK_PROOF_SHA256 = (
+    "91fd559a6de627391e318d540529366e139458c2d593a84997227b8ec40cbdf9")
 
 
 def _nvidia_smi(fields: str) -> str:
@@ -244,21 +277,34 @@ def main() -> int:
     )
     from zktls_tpu_torch.core import cbor
     from zktls_tpu_torch.stark.machine import preprocessed_root
+    from zktls_tpu_torch.provers.stark import journal_public_messages
+    from zktls_tpu_torch.snark.wrap import mimc_hash
+    from zktls_tpu_torch.stark.config import StarkConfig
+    from zktls_tpu_torch.stark.machine_bn import MachineProofBN
     from zktls_tpu_torch.stark.recursion import (
         RecursionVK,
+        RecursionVKBN,
+        outer_airs,
         recursion_prove,
+        recursion_prove_bn,
         recursion_verify,
+        recursion_verify_bn,
     )
     from zktls_tpu_torch.stark.verifier import VerificationError
     from zktls_tpu_torch.utils import native
     from zktls_tpu_torch.workload import (
         BATCHES,
         COMPRESSES,
+        FIB_CHAIN_BINDING,
+        FIB_CHAIN_CONFIG,
         SESSIONS,
+        SHRINKS,
         FixedMulAir,
+        fib_chain,
         preprocessed_machine,
         sha_compress_machine,
         sha_machine,
+        shrink_statement,
     )
 
     dev = torch.device("cuda", 0)
@@ -292,6 +338,29 @@ def main() -> int:
     print(f"build: poseidon2_host.c {build_s:.2f} s -> {lib_path.name}; "
           "host permute_batch == pure-Python plain at widths 16/24 on 256 "
           "seeded states each (0 and p - 1 among them)")
+    t0 = time.perf_counter()
+    lib_path, _ = native.build_mimc()
+    build_s = time.perf_counter() - t0
+    fr_rows = [[int.from_bytes(host_rng.bytes(32), "little")
+                for _ in range(3)] for _ in range(64)]
+    fr_rows[0], fr_rows[1] = [0] * 3, [(1 << 256) - 1] * 3
+    elems = np.array([[[(v >> (64 * j)) & (2**64 - 1) for j in range(4)]
+                       for v in row] for row in fr_rows], dtype=np.uint64)
+    want = [mimc_hash(row) for row in fr_rows]
+    paths_taken = []
+    for vector in (True, False):
+        paths_taken.append(native._set_mimc_vector(vector))
+        got = [sum(int(x) << (64 * j) for j, x in enumerate(d))
+               for d in native.mimc_hash_rows(elems)]
+        _require(got == want, f"host MiMC (vector={vector}) != mimc_hash")
+    vector_on = native._set_mimc_vector(True)
+    print(f"build: mimc_bn254_host.c (-fopenmp) {build_s:.2f} s -> "
+          f"{lib_path.name}; host mimc_hash_rows == pure-Python mimc_hash "
+          f"on 64 seeded rows of 3 scalars (0 and 2^256 - 1 among them), "
+          f"AVX-512 IFMA path {'taken' if paths_taken[0] else 'absent'} "
+          f"and scalar path; {native.mimc_threads()} MiMC threads on "
+          f"{os.cpu_count()} cores, vector path "
+          f"{'on' if vector_on else 'off'}")
 
     # 3. each entry point against its plain version on the card
     gen = torch.Generator(device=dev)
@@ -745,10 +814,13 @@ def main() -> int:
               f"verified with the vk root; without it rejected ({missing}); "
               "spill_bytes=0, chunked_deep_bytes=0 give the same bytes")
 
+    compress_blobs = {}
+
     def compress_path(covered: set) -> dict:
         """Phase 10: the mid-scale compress against its CPU bytes, then
         the compress of the 0x1303 session's proof at full width; returns
-        the K1 launches of StarkGuestProver.compress."""
+        the K1 launches of StarkGuestProver.compress and keeps (journal,
+        blob) in compress_blobs."""
         tag = "compress sha:"
         inst, msgs, binding = sha_compress_machine()
         t0 = time.perf_counter()
@@ -818,6 +890,9 @@ def main() -> int:
         _require(got == {name: n for name, n, *_ in spec.chips},
                  f"{tag} the outer chips are {got}")
         digest = hashlib.sha256(blob).hexdigest()
+        _require(digest == COMPRESS_1303_SHA256,
+                 f"{tag} the blob's digest is {digest}")
+        compress_blobs["compress_1303"] = (journal, blob)
         print(f"{tag} StarkGuestProver.compress {compress_s:.2f} s: "
               f"{vk.n_instrs} instructions, {vk.n_pubs} public inputs, outer "
               f"chips {got}")
@@ -864,6 +939,119 @@ def main() -> int:
             shutil.rmtree(cache, ignore_errors=True)
         return launches
 
+    def shrink_path(covered: set) -> dict:
+        """Phase 11: the tiny chain's shrink against the JAX package's
+        bytes, then the shrink of the 0x1303 compress blob at full width;
+        returns the K1 launches of the full-width shrink."""
+        tag = "shrink fib:"
+        cfg = StarkConfig(**FIB_CHAIN_CONFIG)
+        t0 = time.perf_counter()
+        _, vk_a, proof_a = fib_chain(dev)
+        a_binding, a_msgs, pre_roots = shrink_statement(
+            vk_a, FIB_CHAIN_BINDING, [])
+        vk_b, proof_b = recursion_prove_bn(
+            outer_airs(), proof_a, a_binding, a_msgs, cfg, cfg,
+            inner_preprocessed_roots=pre_roots, device=dev)
+        blob = proof_b.to_bytes()
+        digest = hashlib.sha256(blob).hexdigest()
+        print(f"{tag} Fibonacci(5) proved, compressed and shrunk on the card "
+              f"{time.perf_counter() - t0:.2f} s: {vk_b.n_instrs} "
+              "instructions, outer chips " + ", ".join(
+                  f"{c.name} {1 << c.log_n}" for c in proof_b.chips)
+              + f"; proof {len(blob)} bytes, sha256 {digest}")
+        _require(digest == SHRINK_PROOF_SHA256,
+                 f"{tag} the card's shrink proof differs from the JAX "
+                 "package's digest")
+        _require(recursion_verify_bn(vk_b, MachineProofBN.from_bytes(blob),
+                                     a_binding, a_msgs, cfg),
+                 f"{tag} recursion_verify_bn rejected the proof")
+        print(f"{tag} proof == the JAX package's digest; recursion_verify_bn "
+              "ok")
+
+        # the full-width shrink of the 0x1303 compress blob
+        spec = SHRINKS["shrink_1303"]
+        tag = "shrink 1303:"
+        if spec.compress not in compress_blobs:
+            launches_by_path["compress"] = compress_path(covered)
+        journal, cblob = compress_blobs[spec.compress]
+        _require(hashlib.sha256(cblob).hexdigest() == COMPRESS_1303_SHA256,
+                 f"{tag} the compress blob is not 0x1303's")
+        obj = cbor.loads(cblob)
+        vk_a = RecursionVK.from_bytes(obj["vk"])
+        outer_a = MachineProof.from_bytes(obj["proof"])
+        msgs = journal_public_messages(journal)
+        a_binding, a_msgs, pre_roots = shrink_statement(vk_a, journal, msgs)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        timings: dict = {}
+        k1.reset_launches()
+        p2.plain_calls = 0
+        t0 = time.perf_counter()
+        vk_b, proof_b = recursion_prove_bn(
+            outer_airs(), outer_a, a_binding, a_msgs, DEFAULT_CONFIG,
+            DEFAULT_CONFIG, inner_preprocessed_roots=pre_roots,
+            timings=timings, device=dev)
+        torch.cuda.synchronize(dev)
+        shrink_s = time.perf_counter() - t0
+        launches, plain = dict(k1.launches), p2.plain_calls
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        blob = proof_b.to_bytes()
+        digest = hashlib.sha256(blob).hexdigest()
+        got = {c.name: 1 << c.log_n for c in proof_b.chips}
+        print(f"{tag} recursion_prove_bn {shrink_s:.2f} s: "
+              f"{vk_b.n_instrs} instructions, {vk_b.n_pubs} public inputs, "
+              f"outer chips {got}")
+        print(f"{tag} build_program {timings['build_program']:.2f} s")
+        print(f"{tag} outer_chips (vm_trace, sponge_trace) "
+              f"{timings['outer_chips']:.2f} s")
+        print(f"{tag} outer prove_machine_bn {timings['prove_bn_s']:.2f} s: "
+              + ", ".join(f"{k} {timings[k]:.3f}" for k in STAGES))
+        print(f"{tag} host MiMC (mimc_s, inside the prove) "
+              f"{timings['mimc_s']:.2f} s on {native.mimc_threads()} threads "
+              f"of {os.cpu_count()} cores, vector path "
+              f"{'on' if vector_on else 'off'}")
+        print(f"{tag} peak device memory {peak:.2f} GiB; proof {len(blob)} "
+              f"bytes, sha256 {digest}; K1 launches {launches}, plain calls "
+              f"{plain}")
+        _require(vk_b.n_instrs == spec.instrs,
+                 f"{tag} the program has {vk_b.n_instrs} instructions")
+        _require(got == {name: n for name, n, *_ in spec.chips},
+                 f"{tag} the outer chips are {got}")
+        _require(sum(launches.values()) == 0 and plain == 0,
+                 f"{tag} the shrink hashed with Poseidon2 on the card")
+        vk2 = RecursionVKBN.from_bytes(vk_b.to_bytes())
+        t0 = time.perf_counter()
+        _require(recursion_verify_bn(vk2, MachineProofBN.from_bytes(blob),
+                                     a_binding, a_msgs, DEFAULT_CONFIG),
+                 f"{tag} recursion_verify_bn rejected the proof")
+        print(f"{tag} recursion_verify_bn (proof and vk through bytes) "
+              f"{time.perf_counter() - t0:.2f} s ok")
+        bad_journal, pos = _tamper_filtered(journal)
+        bad_binding, bad_msgs, _ = shrink_statement(
+            vk_a, bad_journal, journal_public_messages(bad_journal))
+        bad_vk = dataclasses.replace(vk2, program_root=vk2.program_root ^ 1)
+        bad_proof = MachineProofBN.from_bytes(blob)
+        bad_proof.queries[0].openings[0].trace_row[0] ^= 1
+        for what, args in (
+                (f"journal with filtered byte {pos} changed",
+                 (vk2, MachineProofBN.from_bytes(blob), bad_binding,
+                  bad_msgs)),
+                ("vk with a changed program root",
+                 (bad_vk, MachineProofBN.from_bytes(blob), a_binding,
+                  a_msgs)),
+                ("proof with one changed opened value",
+                 (vk2, bad_proof, a_binding, a_msgs))):
+            t0 = time.perf_counter()
+            try:
+                recursion_verify_bn(*args, DEFAULT_CONFIG)
+            except VerificationError as e:
+                print(f"{tag} {what} rejected in "
+                      f"{time.perf_counter() - t0:.2f} s ({e})")
+            else:
+                raise RuntimeError(f"{tag} the proof verified with a {what}")
+        print(f"{tag} total {time.perf_counter() - t_start:.1f} s")
+        return launches
+
     launches_by_path = {}
     if "sha" in paths:
         launches_by_path.update(sha_path())
@@ -880,9 +1068,12 @@ def main() -> int:
     for name, tamper in (("c02f_x2", 1), ("c02f_x8", 4)):
         if name in paths:
             launches_by_path[name] = batch_path(name, covered, tamper)
-    # 10. the compress rung, the slice's full-width path
+    # 10. the compress rung
     if "compress" in paths:
         launches_by_path["compress"] = compress_path(covered)
+    # 11. the shrink rung, the slice's full-width path
+    if "shrink" in paths:
+        launches_by_path["shrink"] = shrink_path(covered)
     if args.only is not None:
         print(f"--only {','.join(paths)}: done in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -891,7 +1082,7 @@ def main() -> int:
                 **{k: launches_by_path["compress"][k]
                    for k in ("hash_rows", "merkle_levels")}}
 
-    # 11. kernels (launches: the compress's; permute: the grinding path's,
+    # 12. kernels (launches: the compress's; permute: the grinding path's,
     # its one caller)
     print(json.dumps({"kernels": [{
         "name": f"poseidon2_{name}",
@@ -909,7 +1100,7 @@ def main() -> int:
         "bound_by": b["bound_by"],
         "library_ms": None,
     } for name, (_, ms, plain_ms, b) in timed.items()]}))
-    # 12. result
+    # 13. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,6 +4,11 @@ PyTorch port on the CPU, and check the proof with both packages' verifiers.
     JAX_PLATFORMS=cpu python scripts/session_proof_cpu.py [--session 1302]
     JAX_PLATFORMS=cpu python scripts/session_proof_cpu.py --batch c02f_x2
     JAX_PLATFORMS=cpu python scripts/session_proof_cpu.py --compress sha
+    JAX_PLATFORMS=cpu python scripts/session_proof_cpu.py --compress fib \
+        [--reference]
+    JAX_PLATFORMS=cpu python scripts/session_proof_cpu.py --shrink fib|sha
+    JAX_PLATFORMS=cpu python scripts/session_proof_cpu.py --machine sha|bn \
+        [--reference]
 
 Replays the session's committed GuestInput (`--session`: c02f, the
 default, 1302 or 1303; `zktls_tpu_torch.workload.SESSIONS`) with the
@@ -31,6 +36,40 @@ SHA-256 (chip_smoke.py's COMPRESS_PROOF_SHA256), then checks it with the
 port's `recursion_verify` against the vk and with the JAX package's
 `recursion_verify` from the bare shape (it rebuilds the program and
 derives the vk root itself, which must equal the port's).
+`--compress fib` compresses the Fibonacci inner of
+tests/test_torch_recursion.py with the port and requires its vk and outer
+proof bytes to equal the JAX package's, committed in
+`zktls_tpu_torch/data/fib_compress.jax.cbor`
+(`workload.FIB_COMPRESS_REFERENCE`, which that test reads instead of
+compressing with JAX itself); `--reference` also compresses it with the
+JAX package again (~4 min of XLA compiles), writes those bytes to
+`build/compress_fib.jax.cbor` (or `--out`) and requires them to equal the
+committed file.
+`--machine sha` proves the 256-row Sha256Air machine of
+tests/test_torch_machine.py (`workload.SHA_MACHINE_*`) with the port and
+requires its bytes to equal the JAX package's committed proof
+(`zktls_tpu_torch/data/sha256_machine.jax.proof`, which that test reads
+instead of proving with JAX itself); `--reference` also proves it with the
+JAX package again (~3 min of XLA compiles), writes those bytes to
+`build/machine_sha.jax.proof` (or `--out`) and requires them to equal the
+committed file; it also evaluates the JAX package's constraint-VM
+quotient of that chip as tests/test_torch_machine.py does
+(`workload.sha_quotient_inputs`) and requires it to equal the committed
+`zktls_tpu_torch/data/sha256_quotient.jax.npy` (written to
+`build/sha256_quotient.jax.npy`).
+`--machine bn` does the same for the BN-committed proof
+(`prove_machine_bn`) of the preprocessed machine of
+tests/test_torch_shrink.py (`workload.BN_MACHINE_*`,
+`zktls_tpu_torch/data/bn_machine.jax.proof`, `build/machine_bn.jax.proof`).
+`--shrink fib` proves the tiny chain of tests/test_shrink_bn.py
+(Fibonacci(5), compress, shrink; `workload.fib_chain`) with the port on
+the CPU and, unless `--no-reference`, with the JAX package, prints both
+shrink proofs' SHA-256 (chip_smoke.py's SHRINK_PROOF_SHA256) and requires
+them equal.  `--shrink sha` compresses the 256-row Sha256Air machine as
+`--compress sha` does and shrinks that compress proof at DEFAULT_CONFIG
+(VmAir 2^20 rows), printing the stage seconds, the peak resident memory,
+the proof's SHA-256 and the JAX package's `recursion_verify_bn` verdict.
+The MiMC library runs on `--threads` threads too.
 `--no-reference --out PROOF` proves on a host without the JAX package, such
 as the card machine's, and keeps the proof where the caller wants it.
 """
@@ -56,8 +95,18 @@ def main() -> None:
                     help="the committed session to prove (default c02f)")
     ap.add_argument("--batch", choices=("c02f_x2", "c02f_x8"),
                     help="prove this batch of committed sessions instead")
-    ap.add_argument("--compress", choices=("sha",),
+    ap.add_argument("--compress", choices=("sha", "fib"),
                     help="compress this machine's proof instead")
+    ap.add_argument("--shrink", choices=("fib", "sha"),
+                    help="shrink this chain's compress proof instead")
+    ap.add_argument("--machine", choices=("sha", "bn"),
+                    help="prove tests/test_torch_machine.py's (sha) or "
+                         "tests/test_torch_shrink.py's (bn) machine "
+                         "against its committed JAX proof instead")
+    ap.add_argument("--reference", action="store_true",
+                    help="--compress fib, --machine: make the JAX "
+                         "package's bytes again and hold them to the "
+                         "committed file")
     ap.add_argument("--threads", type=int, default=8,
                     help="torch CPU threads (default 8)")
     ap.add_argument("--out", type=pathlib.Path,
@@ -69,6 +118,7 @@ def main() -> None:
     args = ap.parse_args()
     what = (f"batch_{args.batch}" if args.batch
             else f"compress_{args.compress}" if args.compress
+            else f"shrink_{args.shrink}" if args.shrink
             else f"session_{args.session}")
     out = args.out or BUILD / f"{what}.cpu.proof"
 
@@ -79,9 +129,21 @@ def main() -> None:
     from zktls_tpu_torch.stark.machine import STAGES, prove_machine
     from zktls_tpu_torch.workload import batch_machine, session_machine
 
+    from zktls_tpu_torch.utils import native
+
     torch.set_num_threads(args.threads)
+    native.set_mimc_threads(args.threads)
+    if args.compress == "fib":
+        compress_fib(args)
+        return
+    if args.machine:
+        (machine_sha if args.machine == "sha" else machine_bn)(args)
+        return
     if args.compress:
         compress_sha(args, out)
+        return
+    if args.shrink:
+        (shrink_fib if args.shrink == "fib" else shrink_sha)(args, out)
         return
     t0 = time.perf_counter()
     if args.batch:
@@ -199,6 +261,330 @@ def compress_sha(args, out: pathlib.Path) -> None:
         print(f"JAX package recursion_vk == the port's vk root; "
               f"recursion_verify: ok ({time.perf_counter() - t0:.1f} s)")
     print(f"total {time.perf_counter() - t_all:.1f} s; {_peak_rss()}")
+
+
+def compress_fib(args) -> None:
+    """`--compress fib [--reference]` (module docstring)."""
+    from zktls_tpu_torch.core import cbor
+    from zktls_tpu_torch.models.fibonacci import FibonacciAir, \
+        fibonacci_trace
+    from zktls_tpu_torch.stark.config import StarkConfig
+    from zktls_tpu_torch.stark.machine import ChipInstance, prove_machine
+    from zktls_tpu_torch.stark.recursion import recursion_prove
+    from zktls_tpu_torch.workload import (
+        FIB_COMPRESS_BINDING,
+        FIB_COMPRESS_CONFIG,
+        FIB_COMPRESS_REFERENCE,
+    )
+
+    cfg = StarkConfig(**FIB_COMPRESS_CONFIG)
+    trace, pub = fibonacci_trace(5)
+    inner = prove_machine(
+        [ChipInstance(air=FibonacciAir(), trace=trace, publics=pub)],
+        binding=FIB_COMPRESS_BINDING, config=cfg, device="cpu")
+    t0 = time.perf_counter()
+    vk, outer = recursion_prove([FibonacciAir()], inner,
+                                FIB_COMPRESS_BINDING, inner_config=cfg,
+                                outer_config=cfg, device="cpu")
+    mine = cbor.dumps({"vk": vk.to_bytes(), "proof": outer.to_bytes()})
+    print(f"port recursion_prove {time.perf_counter() - t0:.1f} s")
+
+    def reference() -> bytes:
+        from zktls_tpu.models.fibonacci import FibonacciAir as JFibonacciAir
+        from zktls_tpu.stark.config import StarkConfig as JStarkConfig
+        from zktls_tpu.stark.machine import MachineProof as JMachineProof
+        from zktls_tpu.stark.recursion import recursion_prove as jprove
+
+        jcfg = JStarkConfig(**FIB_COMPRESS_CONFIG)
+        jvk, jouter = jprove([JFibonacciAir()],
+                             JMachineProof.from_bytes(inner.to_bytes()),
+                             FIB_COMPRESS_BINDING, inner_config=jcfg,
+                             outer_config=jcfg)
+        return cbor.dumps({"vk": jvk.to_bytes(), "proof": jouter.to_bytes()})
+
+    _hold_to_committed(mine, FIB_COMPRESS_REFERENCE, reference, args,
+                       "compress_fib.jax.cbor")
+
+
+def _hold_to_committed(mine: bytes, path: pathlib.Path, make_reference,
+                       args, name: str) -> None:
+    """Require the port's bytes to equal the committed JAX bytes at `path`;
+    with --reference, make the JAX bytes again (`make_reference()`), write
+    them to --out (default build/<name>) and require them equal too."""
+    committed = path.read_bytes() if path.exists() else None
+    print(f"port bytes sha256 {hashlib.sha256(mine).hexdigest()}; committed "
+          f"{path.name}: " + (f"sha256 {hashlib.sha256(committed).hexdigest()}"
+                              if committed is not None else "missing"))
+    if args.reference:
+        t0 = time.perf_counter()
+        ref = make_reference()
+        out = args.out or BUILD / name
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_bytes(ref)
+        print(f"JAX package {time.perf_counter() - t0:.1f} s: sha256 "
+              f"{hashlib.sha256(ref).hexdigest()} -> {out}")
+        if ref != committed:
+            sys.exit("the JAX package's bytes differ from the committed "
+                     "file")
+    if mine != committed:
+        sys.exit("the port's bytes differ from the committed JAX bytes")
+    print("port == committed JAX bytes" + (" == live JAX bytes"
+                                           if args.reference else ""))
+
+
+def machine_sha(args) -> None:
+    """`--machine sha [--reference]` (module docstring)."""
+    from zktls_tpu_torch.stark.config import StarkConfig
+    from zktls_tpu_torch.stark.machine import prove_machine
+    from zktls_tpu_torch.workload import (
+        SHA_MACHINE_BINDING,
+        SHA_MACHINE_CONFIG,
+        SHA_MACHINE_REFERENCE,
+        SHA_MACHINE_SEED,
+        sha_machine,
+    )
+
+    inst, _ = sha_machine(2, 100, SHA_MACHINE_SEED)
+    mine = prove_machine([inst], SHA_MACHINE_BINDING,
+                         StarkConfig(**SHA_MACHINE_CONFIG),
+                         device="cpu").to_bytes()
+
+    def reference() -> bytes:
+        from zktls_tpu.stark import machine as jmachine
+        from zktls_tpu.stark.chips.sha256 import Sha256Air as JSha256Air
+        from zktls_tpu.stark.config import StarkConfig as JStarkConfig
+
+        jinst = jmachine.ChipInstance(air=JSha256Air(), trace=inst.trace,
+                                      publics=inst.publics)
+        return jmachine.prove_machine(
+            [jinst], binding=SHA_MACHINE_BINDING,
+            config=JStarkConfig(**SHA_MACHINE_CONFIG)).to_bytes()
+
+    _hold_to_committed(mine, SHA_MACHINE_REFERENCE, reference, args,
+                       "machine_sha.jax.proof")
+    if args.reference:
+        _sha_quotient_reference(inst.trace)
+
+
+def _sha_quotient_reference(trace) -> None:
+    """The JAX package's eval_quotient_vm of the Sha256Air chip at
+    `workload.sha_quotient_inputs`, held to the committed values."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from zktls_tpu.ops import babybear as jbb
+    from zktls_tpu.ops import ntt as jntt
+    from zktls_tpu.ops.field_ref import Fp4 as JFp4
+    from zktls_tpu.stark.chips.sha256 import Sha256Air as JSha256Air
+    from zktls_tpu.stark.config import selector_arrays as jsel
+    from zktls_tpu.stark.lowering import eval_quotient_vm as jvm
+    from zktls_tpu_torch.ops.field_ref import P
+    from zktls_tpu_torch.stark.chips.sha256 import Sha256Air
+    from zktls_tpu_torch.stark.lowering import lower_air
+    from zktls_tpu_torch.workload import (
+        SHA_QUOTIENT_REFERENCE,
+        sha_quotient_inputs,
+    )
+
+    t0 = time.perf_counter()
+    log_n, log_blowup, shift = 8, 2, 31
+    coeffs, publics, apow = sha_quotient_inputs(
+        lower_air(Sha256Air(), 4, 74).n_constraints)
+    challenges = [JFp4(*c) for c in coeffs]
+    perm = JSha256Air().generate_perm_trace(trace, [], challenges)
+
+    def lde(x, s=shift):
+        return jntt.coset_lde(jbb.to_mont(jnp.asarray(x)), log_blowup, s)
+
+    periodic = np.stack([np.asarray(jnp.tile(
+        lde(pat, pow(shift, (1 << log_n) // len(pat), P)),
+        (1 << log_n) // len(pat))) for pat in JSha256Air().periodic_columns()])
+    sels = jsel(log_n, log_blowup, shift)
+    sel_keys = ("is_first_row", "is_last_row", "is_transition")
+    want = np.asarray(jvm(
+        JSha256Air(), lde(trace), lde(perm), challenges, publics, apow,
+        {k: jbb.to_mont(jnp.asarray(sels[k])) for k in sel_keys},
+        jbb.to_mont(jnp.asarray(sels["inv_z_h"])), jnp.asarray(periodic),
+        log_blowup)).astype(np.uint32)
+    out = BUILD / "sha256_quotient.jax.npy"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.save(out, want)
+    print(f"JAX package quotient {time.perf_counter() - t0:.1f} s: "
+          f"{want.shape}, file sha256 "
+          f"{hashlib.sha256(out.read_bytes()).hexdigest()} -> {out}")
+    committed = (np.load(SHA_QUOTIENT_REFERENCE)
+                 if SHA_QUOTIENT_REFERENCE.exists() else None)
+    if committed is None or not np.array_equal(committed, want):
+        sys.exit("the JAX package's quotient differs from the committed "
+                 "file")
+    print("JAX quotient == committed")
+
+
+def machine_bn(args) -> None:
+    """`--machine bn [--reference]` (module docstring)."""
+    from zktls_tpu_torch.stark.config import StarkConfig
+    from zktls_tpu_torch.stark.machine_bn import prove_machine_bn
+    from zktls_tpu_torch.workload import (
+        BN_MACHINE_BINDING,
+        BN_MACHINE_CONFIG,
+        BN_MACHINE_LOG_N,
+        BN_MACHINE_REFERENCE,
+        FixedMulAir,
+        preprocessed_machine,
+    )
+
+    chips, _ = preprocessed_machine(BN_MACHINE_LOG_N)
+    mine = prove_machine_bn(chips, BN_MACHINE_BINDING,
+                            StarkConfig(**BN_MACHINE_CONFIG),
+                            device="cpu").to_bytes()
+
+    def reference() -> bytes:
+        from zktls_tpu.models.fibonacci import FibonacciAir as JFibonacciAir
+        from zktls_tpu.stark.air import Air as JAir
+        from zktls_tpu.stark.config import StarkConfig as JStarkConfig
+        from zktls_tpu.stark.machine import ChipInstance as JChipInstance
+        from zktls_tpu.stark.machine_bn import prove_machine_bn as jprove
+
+        class JFixedMulAir(JAir):
+            """The JAX package's side of the port's FixedMulAir."""
+
+            width = 2
+            preprocessed_width = 2
+            num_public = 0
+            max_constraint_degree = 2
+            name = "FixedMulAir"
+            eval = FixedMulAir.eval
+
+        jchips = [JChipInstance(air=a, trace=c.trace, publics=c.publics,
+                                preprocessed=c.preprocessed)
+                  for a, c in zip((JFixedMulAir(), JFibonacciAir()), chips)]
+        return jprove(jchips, BN_MACHINE_BINDING,
+                      JStarkConfig(**BN_MACHINE_CONFIG)).to_bytes()
+
+    _hold_to_committed(mine, BN_MACHINE_REFERENCE, reference, args,
+                       "machine_bn.jax.proof")
+
+
+def _shrink(vk_a, outer_a, binding, msgs, cfg, label: str):
+    """Shrink a compress proof with the port on the CPU; prints its stages
+    and returns (vk, proof bytes, the statement's binding, messages)."""
+    from zktls_tpu_torch.stark.machine import STAGES
+    from zktls_tpu_torch.stark.recursion import outer_airs, \
+        recursion_prove_bn
+    from zktls_tpu_torch.workload import shrink_statement
+
+    a_binding, a_msgs, roots = shrink_statement(vk_a, binding, msgs)
+    timings: dict = {}
+    t0 = time.perf_counter()
+    vk_b, proof_b = recursion_prove_bn(
+        outer_airs(), outer_a, a_binding, a_msgs, cfg, cfg,
+        inner_preprocessed_roots=roots, timings=timings, device="cpu")
+    blob = proof_b.to_bytes()
+    print(f"{label}: port recursion_prove_bn {time.perf_counter() - t0:.1f} "
+          "s: " + ", ".join(f"{k} {timings[k]:.1f}" for k in (
+              "build_program", "outer_chips", *STAGES, "mimc_s")))
+    print(f"{label}: program {vk_b.n_instrs} instructions; outer chips "
+          + ", ".join(f"{c.name} 2^{c.log_n}" for c in proof_b.chips)
+          + f"; proof {len(blob)} bytes, sha256 "
+          f"{hashlib.sha256(blob).hexdigest()}")
+    return vk_b, blob, a_binding, a_msgs
+
+
+def shrink_fib(args, out: pathlib.Path) -> None:
+    """`--shrink fib` (module docstring)."""
+    from zktls_tpu_torch.stark.config import StarkConfig
+    from zktls_tpu_torch.stark.machine_bn import MachineProofBN
+    from zktls_tpu_torch.stark.recursion import recursion_verify_bn
+    from zktls_tpu_torch.workload import (
+        FIB_CHAIN_BINDING,
+        FIB_CHAIN_CONFIG,
+        fib_chain,
+    )
+
+    t_all = time.perf_counter()
+    cfg = StarkConfig(**FIB_CHAIN_CONFIG)
+    _, vk_a, proof_a = fib_chain("cpu")
+    vk_b, blob, a_binding, a_msgs = _shrink(vk_a, proof_a, FIB_CHAIN_BINDING,
+                                            [], cfg, "fib")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_bytes(blob)
+    recursion_verify_bn(vk_b, MachineProofBN.from_bytes(blob), a_binding,
+                        a_msgs, cfg)
+    print("port recursion_verify_bn: ok")
+    if not args.no_reference:
+        from zktls_tpu.models.fibonacci import FibonacciAir as JFibonacciAir
+        from zktls_tpu.models.fibonacci import fibonacci_trace as jtrace
+        from zktls_tpu.stark import recursion as jrec
+        from zktls_tpu.stark.config import StarkConfig as JStarkConfig
+        from zktls_tpu.stark.machine import ChipInstance as JChipInstance
+        from zktls_tpu.stark.machine import prove_machine as jprove_machine
+
+        jcfg = JStarkConfig(**FIB_CHAIN_CONFIG)
+        t0 = time.perf_counter()
+        trace, pub = jtrace(5)
+        jinner = jprove_machine(
+            [JChipInstance(air=JFibonacciAir(), trace=trace, publics=pub)],
+            binding=FIB_CHAIN_BINDING, config=jcfg)
+        jvk_a, jproof_a = jrec.recursion_prove(
+            [JFibonacciAir()], jinner, FIB_CHAIN_BINDING, inner_config=jcfg,
+            outer_config=jcfg)
+        jb = FIB_CHAIN_BINDING + jvk_a.shape.to_bytes()
+        jmsgs = jrec._session_messages(jvk_a.shape, FIB_CHAIN_BINDING, [])
+        jvk_b, jproof_b = jrec.recursion_prove_bn(
+            jrec.outer_airs(), jproof_a, jb, public_messages=jmsgs,
+            inner_config=jcfg, outer_config=jcfg,
+            inner_preprocessed_roots={"VmAir": list(jvk_a.program_root)})
+        jblob = jproof_b.to_bytes()
+        print(f"JAX package chain {time.perf_counter() - t0:.1f} s: shrink "
+              f"proof {len(jblob)} bytes, sha256 "
+              f"{hashlib.sha256(jblob).hexdigest()}")
+        if jblob != blob or jvk_b.to_bytes() != vk_b.to_bytes():
+            sys.exit("the two packages' shrink proofs or vks differ")
+        print("port == JAX package (proof and vk bytes)")
+    print(f"total {time.perf_counter() - t_all:.1f} s; {_peak_rss()}")
+
+
+def shrink_sha(args, out: pathlib.Path) -> None:
+    """`--shrink sha` (module docstring)."""
+    from zktls_tpu_torch.stark.chips.sha256 import Sha256Air
+    from zktls_tpu_torch.stark.config import DEFAULT_CONFIG
+    from zktls_tpu_torch.stark.machine import prove_machine
+    from zktls_tpu_torch.stark.recursion import recursion_prove
+    from zktls_tpu_torch.workload import sha_compress_machine
+
+    t_all = time.perf_counter()
+    inst, msgs, binding = sha_compress_machine()
+    inner = prove_machine([inst], binding, DEFAULT_CONFIG, device="cpu")
+    t0 = time.perf_counter()
+    vk_a, outer = recursion_prove([Sha256Air()], inner, binding, msgs,
+                                  DEFAULT_CONFIG, DEFAULT_CONFIG,
+                                  device="cpu")
+    print(f"compress sha {time.perf_counter() - t0:.1f} s: outer proof "
+          f"sha256 {hashlib.sha256(outer.to_bytes()).hexdigest()}")
+    vk_b, blob, a_binding, a_msgs = _shrink(vk_a, outer, binding, msgs,
+                                            DEFAULT_CONFIG, "shrink sha")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_bytes(blob)
+    print(f"-> {out}; {_peak_rss()}")
+    if not args.no_reference:
+        from zktls_tpu.stark.machine_bn import MachineProofBN as JProofBN
+        from zktls_tpu.stark.recursion import RecursionVKBN as JVKBN
+        from zktls_tpu.stark.recursion import recursion_verify_bn as jverify
+
+        t0 = time.perf_counter()
+        try:
+            jverify(JVKBN.from_bytes(vk_b.to_bytes()),
+                    JProofBN.from_bytes(blob), a_binding, a_msgs)
+            verdict = "ok"
+        except Exception as exc:  # the JAX package's VerificationError
+            if type(exc).__name__ != "VerificationError":
+                raise
+            verdict = f"rejected: {exc}"
+        print(f"JAX package recursion_verify_bn: {verdict} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if verdict != "ok":
+            sys.exit("the JAX package rejected the shrink proof")
+    print(f"total {time.perf_counter() - t_all:.1f} s")
 
 
 if __name__ == "__main__":

@@ -284,19 +284,26 @@ def test_cli_replays_without_jax_or_cryptography(request_json):
 
 
 def test_native_and_batch_path_without_jax_or_cryptography():
-    """The host Poseidon2 library, the batch path (two sessions' replays,
-    merge_guest_outputs, build_chip_instances, batch_public_messages) and
-    the compress rung's modules in a process of their own import no module
-    of jax, zktls_tpu or cryptography."""
+    """The host Poseidon2 and MiMC libraries, the batch path (two sessions'
+    replays, merge_guest_outputs, build_chip_instances,
+    batch_public_messages) and the compress and shrink rungs' modules in a
+    process of their own import no module of jax, zktls_tpu or
+    cryptography."""
     code = (
         "import sys\n"
         "from zktls_tpu_torch.ops.poseidon2 import Poseidon2\n"
         "from zktls_tpu_torch.provers import stark\n"
         "from zktls_tpu_torch.stark import debug, recursion\n"
+        "from zktls_tpu_torch.stark import commit_bn, machine_bn\n"
+        "from zktls_tpu_torch.snark import wrap\n"
         "from zktls_tpu_torch.stark.chips import bytes_table\n"
         "from zktls_tpu_torch import profile_prove\n"
         "from zktls_tpu_torch.workload import batch_machine\n"
         "assert len(Poseidon2(24).permute_ints(list(range(24)))) == 24\n"
+        "import numpy as np\n"
+        "m = np.arange(36, dtype=np.uint32).reshape(4, 9)\n"
+        "assert commit_bn.MimcTree(m).root == "
+        "commit_bn.MimcTree(m, native=False).root\n"
         "chips, journals = batch_machine('c02f_x2')\n"
         "msgs = stark.batch_public_messages(journals)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -4,8 +4,14 @@ tags): byte-identical proofs, each package's verifier accepting the other's
 proof and rejecting a tampered digest, and the constraint-VM quotient
 equal on the chip's LDE.
 
-The JAX proof costs ~100 s of XLA compilation on the CPU, so it is built
-once for the module."""
+The JAX package's proof and quotient are its prove_machine and
+eval_quotient_vm outputs committed in zktls_tpu_torch/data/
+(`workload.SHA_MACHINE_REFERENCE`, `SHA_QUOTIENT_REFERENCE`, pinned by
+digest here, made and checked live by scripts/session_proof_cpu.py
+--machine sha --reference): computing them here cost ~190 and ~85 s of
+XLA compilation per run."""
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -31,17 +37,31 @@ from zktls_tpu_torch.stark.chips.sha256 import Sha256Air
 from zktls_tpu_torch.stark.chips.sha256 import sha256_trace
 from zktls_tpu_torch.stark.config import StarkConfig
 from zktls_tpu_torch.stark.verifier import VerificationError
+from zktls_tpu_torch.workload import (
+    SHA_MACHINE_BINDING,
+    SHA_MACHINE_CONFIG,
+    SHA_MACHINE_REFERENCE,
+    SHA_MACHINE_SEED,
+    SHA_QUOTIENT_REFERENCE,
+    sha_quotient_inputs,
+)
 
 from .torch_threads import torch_threads_per_worker  # noqa: F401
 
-BINDING = b"zktls-tpu-torch machine test"
-CFG = dict(log_blowup=2, num_queries=8, pow_bits=0, fri_final_size=16)
+BINDING = SHA_MACHINE_BINDING
+CFG = SHA_MACHINE_CONFIG
+#: SHA-256 of the committed JAX proof and quotient
+SHA_MACHINE_REFERENCE_SHA256 = (
+    "2960f41800ea1d9d96f03c7568d431ce46989d39d731491face6f6ea96f04a36")
+SHA_QUOTIENT_REFERENCE_SHA256 = (
+    "2bade586928432e9bf8a17e7edb92997f6977ac1996355b4585e69e8f4c1461a")
 
 
 @pytest.fixture(scope="module")
 def ref():
-    """The JAX package's chip, public messages and proof bytes."""
-    rng = np.random.default_rng(4404)
+    """The JAX package's chip, public messages and (committed) proof
+    bytes."""
+    rng = np.random.default_rng(SHA_MACHINE_SEED)
     rec = SHA256Recorder()
     digests = [rec.sha256(rng.integers(0, 256, 100, dtype=np.uint8)
                           .tobytes(), result_tag=i + 1) for i in range(2)]
@@ -49,13 +69,11 @@ def ref():
     assert trace.shape == (256, 639)
     inst = jmachine.ChipInstance(air=JSha256Air(), trace=trace,
                                  publics=publics)
-    proof = jmachine.prove_machine([inst], binding=BINDING,
-                                   config=JStarkConfig(**CFG))
     # payload layout of chips/sha256.py: (tag, 16 digest limbs, xb = 0)
     msgs = [(BUS_SHA_RESULT, [i + 1] + digest_limbs(d) + [0], -1)
             for i, d in enumerate(digests)]
     return {"events": rec.events, "inst": inst, "msgs": msgs,
-            "proof": proof.to_bytes()}
+            "proof": SHA_MACHINE_REFERENCE.read_bytes()}
 
 
 @pytest.fixture(scope="module")
@@ -83,6 +101,21 @@ def test_proof_bytes_identical(ref, port_proof):
     assert port_proof == ref["proof"]
 
 
+def test_committed_reference_proof_is_pinned(ref):
+    """The committed JAX proof is the one its prove_machine gave (the
+    digest the live regeneration printed), of this very chip: its one
+    chip is Sha256Air with the chip's publics, and both packages parse and
+    re-encode it unchanged."""
+    data = ref["proof"]
+    assert hashlib.sha256(data).hexdigest() == SHA_MACHINE_REFERENCE_SHA256
+    proof = jmachine.MachineProof.from_bytes(data)
+    assert [(c.name, c.log_n) for c in proof.chips] == [("Sha256Air", 8)]
+    assert proof.chips[0].publics == [int(v) % P
+                                      for v in ref["inst"].publics]
+    assert proof.to_bytes() == data
+    assert tmachine.MachineProof.from_bytes(data).to_bytes() == data
+
+
 def test_reference_verifier_accepts_port_proof(ref, port_proof):
     proof = jmachine.MachineProof.from_bytes(port_proof)
     assert jmachine.verify_machine([JSha256Air()], proof, BINDING,
@@ -105,47 +138,41 @@ def test_port_verifier_accepts_reference_proof(ref):
 
 
 def test_quotient_vm_matches(ref):
-    """eval_quotient_vm of both packages on the chip's LDE with seeded
-    challenges, α powers and bus sum."""
-    import jax.numpy as jnp
-
-    from zktls_tpu.ops import ntt as jntt
-    from zktls_tpu.stark.config import selector_arrays as jsel
-    from zktls_tpu.stark.lowering import eval_quotient_vm as jvm
+    """eval_quotient_vm on the chip's LDE with seeded challenges, α powers
+    and bus sum equals the JAX package's (its committed values, for the
+    same trace and `sha_quotient_inputs`)."""
+    from zktls_tpu_torch.ops.ntt import coset_lde
+    from zktls_tpu_torch.stark.config import selector_arrays
     from zktls_tpu_torch.stark.lowering import eval_quotient_vm as tvm
     from zktls_tpu_torch.stark.lowering import lower_air
 
-    rng = np.random.default_rng(4405)
+    data = SHA_QUOTIENT_REFERENCE.read_bytes()
+    assert hashlib.sha256(data).hexdigest() == SHA_QUOTIENT_REFERENCE_SHA256
+    want = np.load(SHA_QUOTIENT_REFERENCE)
     trace = ref["inst"].trace
     log_n, log_blowup, shift = 8, 2, 31
-    challenges = [Fp4(*[int(x) for x in rng.integers(0, P, 4)])
-                  for _ in range(74)]
-    perm = JSha256Air().generate_perm_trace(trace, [], challenges)
-    publics = [int(x) for x in rng.integers(0, P, 4)]
     n_c = lower_air(Sha256Air(), 4, 74).n_constraints
-    apow = rng.integers(0, P, (n_c, 4), dtype=np.uint32)
-    sels = jsel(log_n, log_blowup, shift)
-    lde = jntt.coset_lde(jbb.to_mont(jnp.asarray(trace)), log_blowup, shift)
-    perm_lde = jntt.coset_lde(jbb.to_mont(jnp.asarray(perm)), log_blowup,
-                              shift)
-    periodic = np.stack([np.asarray(jnp.tile(jntt.coset_lde(
-        jbb.to_mont(jnp.asarray(pat)), log_blowup,
-        pow(shift, (1 << log_n) // len(pat), P)), (1 << log_n) // len(pat)))
-        for pat in JSha256Air().periodic_columns()])
-    sel_keys = ("is_first_row", "is_last_row", "is_transition")
-    want = jvm(JSha256Air(), lde, perm_lde, challenges, publics, apow,
-               {k: jbb.to_mont(jnp.asarray(sels[k])) for k in sel_keys},
-               jbb.to_mont(jnp.asarray(sels["inv_z_h"])),
-               jnp.asarray(periodic), log_blowup)
+    coeffs, publics, apow = sha_quotient_inputs(n_c)
+    challenges = [TFp4(*c) for c in coeffs]
+    perm = Sha256Air().generate_perm_trace(trace, [], challenges)
+    sels = selector_arrays(log_n, log_blowup, shift)
 
     def t(x):
         return tbb.from_numpy(np.asarray(x))
 
-    got = tvm(Sha256Air(), t(lde), t(perm_lde),
-              [TFp4(*c.c) for c in challenges], publics, apow,
+    def lde(x, s=shift):
+        return coset_lde(tbb.to_mont(t(x)), log_blowup, s)
+
+    periodic = torch.stack([
+        lde(pat, pow(shift, (1 << log_n) // len(pat), P)).repeat(
+            (1 << log_n) // len(pat))
+        for pat in Sha256Air().periodic_columns()])
+    sel_keys = ("is_first_row", "is_last_row", "is_transition")
+    got = tvm(Sha256Air(), lde(trace), lde(perm), challenges, publics, apow,
               {k: tbb.to_mont(t(sels[k])) for k in sel_keys},
-              tbb.to_mont(t(sels["inv_z_h"])), t(periodic), log_blowup)
-    np.testing.assert_array_equal(tbb.to_numpy(got), np.asarray(want))
+              tbb.to_mont(t(sels["inv_z_h"])), periodic, log_blowup)
+    assert want.shape == (4 << log_n, 4)
+    np.testing.assert_array_equal(tbb.to_numpy(got), want)
 
 
 def test_grinding_witness_matches_reference(ref, monkeypatch):

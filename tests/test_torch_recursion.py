@@ -6,9 +6,14 @@ preprocessed inner.  The program (instruction payloads, chain seeds,
 public inputs, sponge rows), the VM and sponge traces, their perm traces at
 fixed challenges, the vk and the outer proof are equal; each package's
 recursion_verify accepts the other's proof and both reject a changed
-binding.  One JAX outer proof is made (the module fixture `outer`: its XLA
-compile is this file's cost); every other proof is the port's, on the CPU.
-Equality is exact."""
+binding.  The JAX package's vk and outer proof of the Fibonacci inner are
+its recursion_prove output committed in zktls_tpu_torch/data/
+(`workload.FIB_COMPRESS_REFERENCE`, pinned by digest here, made and
+checked live by scripts/session_proof_cpu.py --compress fib --reference),
+read instead of compiled in every run; every proof made here is the
+port's, on the CPU.  Equality is exact."""
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -26,6 +31,7 @@ from zktls_tpu.stark.machine import MachineProof as JMachineProof
 from zktls_tpu.stark.machine import verify_machine as jverify_machine
 from zktls_tpu.stark.verifier import VerificationError as JVerificationError
 from zktls_tpu_torch.convert import chip_instance_from_reference
+from zktls_tpu_torch.core import cbor
 from zktls_tpu_torch.models.fibonacci import FibonacciAir, fibonacci_trace
 from zktls_tpu_torch.ops.field_ref import Fp4
 from zktls_tpu_torch.ops.ntt import coset_lde
@@ -42,14 +48,22 @@ from zktls_tpu_torch.stark.machine import (
     verify_machine,
 )
 from zktls_tpu_torch.stark.verifier import VerificationError
-from zktls_tpu_torch.workload import preprocessed_machine
+from zktls_tpu_torch.workload import (
+    FIB_COMPRESS_BINDING,
+    FIB_COMPRESS_CONFIG,
+    FIB_COMPRESS_REFERENCE,
+    preprocessed_machine,
+)
 
 from .test_torch_preprocessed import JFixedMulAir
 from .torch_threads import torch_threads_per_worker  # noqa: F401
 
-CFG_ARGS = dict(log_blowup=2, num_queries=4, pow_bits=0, fri_final_size=16)
+CFG_ARGS = FIB_COMPRESS_CONFIG
 CFG, JCFG = StarkConfig(**CFG_ARGS), JStarkConfig(**CFG_ARGS)
-BINDING = b"fib-recursion"
+BINDING = FIB_COMPRESS_BINDING
+#: SHA-256 of the committed JAX vk + outer proof of the Fibonacci inner
+FIB_COMPRESS_REFERENCE_SHA256 = (
+    "0a8cff8d36e937c6bbba2b025f4a7677d81317ce0ccd71366a5f3f67def3e677")
 CHALLENGE_INTS = [(3, 1, 4, 1), (2, 7, 1, 8), (5, 9, 2, 6)]
 
 
@@ -104,14 +118,32 @@ def progs(inner):
 @pytest.fixture(scope="module")
 def outer(inner):
     """(port vk, port outer proof, JAX vk, JAX outer proof) of the
-    Fibonacci inner at the tiny configs."""
-    proof, jproof = inner
+    Fibonacci inner at the tiny configs; the JAX pair is read from the
+    committed bytes of the JAX package's recursion_prove."""
+    proof, _ = inner
     vk, out = rec.recursion_prove([FibonacciAir()], proof, BINDING,
                                   inner_config=CFG, outer_config=CFG,
                                   device="cpu")
-    jvk, jout = jrec.recursion_prove([JFibonacciAir()], jproof, BINDING,
-                                     inner_config=JCFG, outer_config=JCFG)
-    return vk, out, jvk, jout
+    ref = cbor.loads(FIB_COMPRESS_REFERENCE.read_bytes())
+    return (vk, out, jrec.RecursionVK.from_bytes(ref["vk"]),
+            JMachineProof.from_bytes(ref["proof"]))
+
+
+def test_committed_reference_compress_is_pinned(inner):
+    """The committed JAX bytes are the ones its recursion_prove gave (the
+    digest the live regeneration printed), for this very inner proof:
+    their vk's shape is the inner's, and both packages parse and re-encode
+    them unchanged."""
+    data = FIB_COMPRESS_REFERENCE.read_bytes()
+    assert hashlib.sha256(data).hexdigest() == FIB_COMPRESS_REFERENCE_SHA256
+    ref = cbor.loads(data)
+    _, jproof = inner
+    jvk = jrec.RecursionVK.from_bytes(ref["vk"])
+    assert jvk.shape == jrec.MachineShape.of(jproof)
+    assert jvk.to_bytes() == ref["vk"]
+    assert rec.RecursionVK.from_bytes(ref["vk"]).to_bytes() == ref["vk"]
+    assert JMachineProof.from_bytes(ref["proof"]).to_bytes() == ref["proof"]
+    assert MachineProof.from_bytes(ref["proof"]).to_bytes() == ref["proof"]
 
 
 def test_program_equals_the_reference(inner, progs):

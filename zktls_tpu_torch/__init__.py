@@ -10,8 +10,13 @@ an obvious counterpart:
   core/      the data model (Request, GuestInput and their CBOR/JSON
              codecs), the CBOR codec the proof bytes rest on, the tapes
   stark/     config, challenger, AIR builders, LogUp bus helpers, the
-             constraint-VM lowering, prover/verifier helpers and the
-             machine prover/verifier
+             constraint-VM lowering, prover/verifier helpers, the machine
+             prover/verifier, the recursion rungs (`recursion.py`: compress
+             and shrink) and the shrink's BN254/MiMC-committed machine
+             (`machine_bn.py`, `commit_bn.py`)
+  snark/     the MP-MiMC hash over the BN254 scalar field
+  utils/     the host Poseidon2 and MiMC in C (csrc/*_host.c), built at
+             first use
   stark/chips/, models/
              the chip AIRs of a TLS 1.2 ECDHE(P-256)-RSA-AES128-GCM-SHA256
              session (SHA-256, AES-128, GHASH, GCM control and data, stream

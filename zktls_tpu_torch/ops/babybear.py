@@ -21,6 +21,7 @@ __all__ = [
     "P", "MONT_R", "MONT_R2", "DTYPE", "from_numpy", "to_numpy", "to_mont",
     "from_mont", "add", "sub", "neg", "mul", "pow_const", "inv", "sum_mod",
     "dot_mod", "matmul_mod", "matmul_mod_rt", "np_to_mont", "np_from_mont",
+    "to_plain_numpy", "CPU_BLOCK_BYTES",
 ]
 
 P = _P_INT
@@ -30,6 +31,12 @@ MONT_R2 = (MONT_R * MONT_R) % _P_INT
 MONT_RINV = pow(MONT_R, -1, _P_INT)
 #: storage type of every field tensor in the port
 DTYPE = torch.int64
+#: on the CPU, `ntt.coset_lde` and the constraint VM work in blocks of at
+#: most this many bytes (output columns, register-file rows): temporaries
+#: that small are served again from the allocator's heap, where larger
+#: ones are fresh zeroed pages every time (the blocks cut a CPU shrink of a
+#: 2^17-row VmAir by about 30 %; the values do not depend on the blocking)
+CPU_BLOCK_BYTES = 1 << 22
 
 
 def from_numpy(x, device=None) -> torch.Tensor:
@@ -165,3 +172,15 @@ def np_to_mont(x: np.ndarray) -> np.ndarray:
 def np_from_mont(x: np.ndarray) -> np.ndarray:
     return ((x.astype(np.uint64) * np.uint64(MONT_RINV)) % np.uint64(_P_INT)
             ).astype(np.uint32)
+
+
+def to_plain_numpy(x: torch.Tensor, block_rows: int) -> np.ndarray:
+    """Montgomery field tensor -> plain uint32 numpy, converted where the
+    tensor is, `block_rows` rows at a time (their temporaries stay small
+    beside a large matrix); every value is < 2^31, so half the bytes cross
+    to the host as int32."""
+    out = np.empty(tuple(x.shape), dtype=np.uint32)
+    for r0 in range(0, x.shape[0], block_rows):
+        blk = from_mont(x[r0 : r0 + block_rows]).to(torch.int32)
+        out[r0 : r0 + blk.shape[0]] = blk.cpu().numpy().view(np.uint32)
+    return out

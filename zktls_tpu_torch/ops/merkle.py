@@ -133,13 +133,9 @@ class MerkleTree:
         if n & (n - 1):
             raise ValueError("leaf count must be a power of two")
         buf = tree_levels(hash_rows(rows))
-        # out of Montgomery form where the tree is, in row blocks (their
-        # temporaries stay small beside a 2^26-leaf tree); every value is
-        # < 2^31, so half the bytes cross to the host as int32
-        nodes = np.empty(tuple(buf.shape), dtype=np.uint32)
-        for r0 in range(0, buf.shape[0], _HOST_ROWS):
-            blk = bb.from_mont(buf[r0 : r0 + _HOST_ROWS]).to(torch.int32)
-            nodes[r0 : r0 + blk.shape[0]] = blk.cpu().numpy().view(np.uint32)
+        # out of Montgomery form where the tree is, in row blocks beside a
+        # 2^26-leaf tree
+        nodes = bb.to_plain_numpy(buf, _HOST_ROWS)
         self.levels_np = [nodes[a:b] for a, b in level_bounds(n)]
 
     @property

@@ -156,15 +156,18 @@ def coset_lde(values: torch.Tensor, log_blowup: int, shift: int
     subgroup; return evaluations on the coset shift·H of the size
     n·2^log_blowup subgroup.  Montgomery in/out.
 
-    A matrix whose extension passes LDE_BLOCK_BYTES (int64) is extended in
-    column blocks of at most that many bytes, written into one output:
-    columns are independent, so the values are the same, and the
-    butterflies' temporaries are a block's, not the whole matrix's."""
+    A matrix whose extension passes LDE_BLOCK_BYTES (int64; on the CPU
+    also bb.CPU_BLOCK_BYTES) is extended in column blocks of at most that
+    many bytes, written into one output: columns are independent, so the
+    values are the same, and the butterflies' temporaries are a block's,
+    not the whole matrix's."""
     N = values.shape[0] << log_blowup
     cols = values.shape[1] if values.ndim == 2 else 1
-    if 8 * N * cols <= LDE_BLOCK_BYTES:
+    limit = (LDE_BLOCK_BYTES if values.device.type != "cpu"
+             else min(LDE_BLOCK_BYTES, bb.CPU_BLOCK_BYTES))
+    if 8 * N * cols <= limit:
         return coeffs_to_coset_evals(intt(values), log_blowup, shift)
-    step = max(1, int(LDE_BLOCK_BYTES // (8 * N)))
+    step = max(1, int(limit // (8 * N)))
     out = torch.empty((N, cols), dtype=values.dtype, device=values.device)
     for c0 in range(0, cols, step):
         out[:, c0 : c0 + step] = coeffs_to_coset_evals(

@@ -1,7 +1,8 @@
 """Where the time of one prove goes, on the card.
 
     python3 -m zktls_tpu_torch.profile_prove [--workload sha|c02f|1302|1303|
-        c02f_x2|c02f_x8|compress_1303|compress_c02f] [--spill-bytes B]
+        c02f_x2|c02f_x8|compress_1303|compress_c02f|shrink_1303]
+        [--spill-bytes B]
         [--chunked-deep-bytes B] [--profiler torch|cprofile|none]
 
 Proves a machine at DEFAULT_CONFIG three times — `sha` (the default): the
@@ -34,6 +35,16 @@ machine proved on the card, then compressed by
 memory, the outer chips and the blob's size and SHA-256; the second
 profiled as above (`cprofile`: its host functions; `none`: no second
 compress).
+
+`shrink_1303` (`workload.SHRINKS`): the session's machine proved and
+compressed on the card as above, then the compress proof shrunk once by
+`recursion_prove_bn` (`workload.shrink_statement`, as the reference's
+`StarkGuestProver.wrap` calls it) — under torch.profiler unless
+`--profiler none` — printing its seconds per stage (`build_program`,
+`outer_chips`, the `prove_machine_bn` stages, `mimc_s`),
+the device seconds and busy share, device time by kind, peak device
+memory, the process's peak resident memory, the MiMC threads and the
+proof's size and SHA-256.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ from .workload import (
     BATCHES,
     COMPRESSES,
     SESSIONS,
+    SHRINKS,
     batch_machine,
     session_machine,
     sha_machine,
@@ -145,7 +157,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", default="sha",
                     choices=("sha", "session", *SESSIONS, *BATCHES,
-                             *COMPRESSES))
+                             *COMPRESSES, *SHRINKS))
     ap.add_argument("--spill-bytes", type=float, default=SPILL_BYTES,
                     help="prove_machine's host-spill limit (default "
                          f"{SPILL_BYTES:g})")
@@ -171,6 +183,8 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if args.workload in COMPRESSES:
         return compress_main(args, dev, card, sms, clock_mhz)
+    if args.workload in SHRINKS:
+        return shrink_main(args, dev, card)
     if args.workload == "sha":
         inst, _ = sha_machine(8, 3000, SEED)
         chips, binding = [inst], b"chip-smoke sha256 machine"
@@ -334,6 +348,84 @@ def compress_main(args, dev, card: str, sms: int, clock_mhz: float) -> int:
     if args.profiler != "none":
         result["profiled_peak_device_gib"] = peaks[1]
         result["profiled_blob_equal"] = outs[1] == blob
+    print(json.dumps(result))
+    return 0
+
+
+def shrink_main(args, dev, card: str) -> int:
+    """The shrink workloads (module docstring)."""
+    import hashlib
+    import os
+    import resource
+
+    from .core import cbor
+    from .provers.stark import StarkGuestProver, journal_public_messages
+    from .stark.machine import MachineProof
+    from .stark.recursion import RecursionVK, outer_airs, recursion_prove_bn
+    from .utils import native
+    from .workload import shrink_statement
+
+    spec = SHRINKS[args.workload]
+    cspec = COMPRESSES[spec.compress]
+    chips, journal = session_machine(cspec.session)
+    inner = prove_machine(chips, journal, DEFAULT_CONFIG,
+                          device=dev).to_bytes()
+    del chips
+    t0 = time.perf_counter()
+    blob = StarkGuestProver(device=dev).compress(
+        journal, inner, spill_bytes=args.spill_bytes,
+        chunked_deep_bytes=args.chunked_deep_bytes)
+    compress_s = time.perf_counter() - t0
+    obj = cbor.loads(blob)
+    vk_a = RecursionVK.from_bytes(obj["vk"])
+    outer_a = MachineProof.from_bytes(obj["proof"])
+    binding, msgs, roots = shrink_statement(
+        vk_a, journal, journal_public_messages(journal))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stages: dict = {}
+
+    def shrink():
+        t0 = time.perf_counter()
+        out = recursion_prove_bn(
+            outer_airs(), outer_a, binding, msgs, DEFAULT_CONFIG,
+            DEFAULT_CONFIG, inner_preprocessed_roots=roots, timings=stages,
+            device=dev)
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0, out
+
+    result = {"card": card, "workload": args.workload,
+              "compress_blob_sha256": hashlib.sha256(blob).hexdigest(),
+              "compress_s": compress_s}
+    if args.profiler == "torch":
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            shrink_s, (vk_b, proof_b) = shrink()
+        rows = _device_rows(prof)
+        device_s = sum(r[2] for r in rows) / 1e6
+        result.update({
+            "device_s": device_s, "device_busy_share": device_s / shrink_s,
+            "device_by_kind": _by_kind(rows),
+            "top_device": [{"name": n[:90], "count": c, "ms": us / 1e3}
+                           for n, c, us in rows[:15]]})
+    else:
+        shrink_s, (vk_b, proof_b) = shrink()
+    proof = proof_b.to_bytes()
+    result.update({
+        "profiler": args.profiler,
+        "shrink_s": shrink_s,
+        "shrink_stages_s": stages,
+        "instructions": vk_b.n_instrs,
+        "outer_chips": {c.name: 1 << c.log_n for c in proof_b.chips},
+        "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "host_peak_rss_gib":
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+        "host_cores": os.cpu_count(),
+        "mimc_threads": native.mimc_threads(),
+        "proof_bytes": len(proof),
+        "proof_sha256": hashlib.sha256(proof).hexdigest(),
+    })
     print(json.dumps(result))
     return 0
 

@@ -765,10 +765,12 @@ def eval_quotient_vm(air, lde, perm_lde, challenges, publics_full,
          sels_m["is_transition"]], dim=1)                   # (N, 3)
     periodic_full = periodic_stack.T                        # (N, n_per)
 
-    # block size: keep the register file ≲ 2^28 entries
+    # block size: keep the register file ≲ 2^28 entries (on the CPU,
+    # ≲ bb.CPU_BLOCK_BYTES)
     width = plan.w_u + plan.n_slots + 8
+    limit = 1 << 30 if dev.type != "cpu" else bb.CPU_BLOCK_BYTES
     B = N
-    while B > 8192 and B * width * 4 > (1 << 30):
+    while B > 8192 and B * width * 4 > limit:
         B //= 2
 
     idx = _plan_tensors(plan, dev)

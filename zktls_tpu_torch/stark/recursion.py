@@ -32,13 +32,12 @@ recursion_prove) and shrink (BN254/MiMC-committed outer,
 recursion_prove_bn — stark/machine_bn.py), whose verifier the Groth16
 wrap circuit arithmetizes (snark/stark_wrap.py).
 
-Port copy of the Poseidon2-committed half of zktls_tpu.stark.recursion
-(same names and values; the program build and the chips' traces on the
-host, the outer machine proof through the port's `prove_machine` on the
-caller's device).  The BN254 half (`RecursionVKBN`, `recursion_prove_bn`,
-`recursion_verify_bn`) is not ported: it needs the BN254-committed machine
-of the shrink layer.  `trusted_vk` reads its cache directory from its
-`cache_dir` argument only (default `~/.local/zktlsd/vk`).
+Port copy of zktls_tpu.stark.recursion, both halves (same names and
+values; the program build and the chips' traces on the host, the outer
+machine proof through the port's `prove_machine` — or, for the shrink,
+`machine_bn.prove_machine_bn` — on the caller's device).  `trusted_vk`
+reads its cache directory from its `cache_dir` argument only (default
+`~/.local/zktlsd/vk`).
 """
 
 from __future__ import annotations
@@ -82,7 +81,8 @@ from .verifier import VerificationError
 
 __all__ = ["MachineShape", "RecursionVK", "recursion_prove",
            "recursion_verify", "recursion_vk", "trusted_vk",
-           "build_program", "outer_airs"]
+           "build_program", "outer_airs", "RecursionVKBN",
+           "recursion_prove_bn", "recursion_verify_bn"]
 
 _X = Fp4(0, 1, 0, 0)
 _EXT_BASIS = [Fp4(1), Fp4(0, 1), Fp4(0, 0, 1), Fp4(0, 0, 0, 1)]
@@ -1311,6 +1311,114 @@ def recursion_prove(airs: list[Air], proof: MachineProof, binding: bytes,
                        device=device)
     _mark("vk_from_prog", t0)
     return vk, outer
+
+
+@dataclass(frozen=True)
+class RecursionVKBN:
+    """Verifying key of a BN-committed (shrink) recursion layer: the
+    inner shape, the MiMC root of the VM program matrix, and the inner
+    machine's own preprocessed roots (pinned — they are program
+    constants, so they are already inside program_root; carried here for
+    the verifier's session-message derivation)."""
+
+    shape: MachineShape
+    program_root: int
+    inner_preprocessed_roots: tuple   # ((name, (limb, …)), …)
+    n_instrs: int
+    n_pubs: int
+
+    def to_bytes(self) -> bytes:
+        from ..core import cbor
+
+        return cbor.dumps({
+            "shape": self.shape.to_bytes(),
+            "root": int(self.program_root).to_bytes(32, "big"),
+            "ipr": [[n, list(r)] for n, r in
+                    self.inner_preprocessed_roots],
+            "ni": self.n_instrs, "np": self.n_pubs})
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "RecursionVKBN":
+        from ..core import cbor
+
+        obj = cbor.loads(data)
+        return cls(shape=MachineShape.from_bytes(obj["shape"]),
+                   program_root=int.from_bytes(obj["root"], "big"),
+                   inner_preprocessed_roots=tuple(
+                       (n, tuple(r)) for n, r in obj["ipr"]),
+                   n_instrs=obj["ni"], n_pubs=obj["np"])
+
+
+def recursion_prove_bn(airs: list[Air], proof: MachineProof,
+                       binding: bytes,
+                       public_messages: list[tuple] | None = None,
+                       inner_config: StarkConfig = DEFAULT_CONFIG,
+                       outer_config: StarkConfig | None = None,
+                       inner_preprocessed_roots: dict | None = None,
+                       timings: dict | None = None, device=None):
+    """The SHRINK layer: same verifier-VM program as recursion_prove,
+    but the outer machine commits with BN254/MiMC (stark/machine_bn.py)
+    so the Groth16 wrap circuit can verify it cheaply.  The inner proof
+    here is typically a compress-layer proof (VM + sponge chips, with
+    the compress program root passed as inner_preprocessed_roots).
+    Returns (RecursionVKBN, MachineProofBN).
+
+    The vk's program root is the VmAir preprocessed root the outer prove
+    commits (the reference commits the program matrix a second time for
+    it, through preprocessed_root_bn, at the same coset: the same root).
+
+    device: where the outer prove runs (`prove_machine`'s rule: the CUDA
+    card by default).  timings: if given, receives the seconds of
+    `build_program`, `outer_chips`, the outer `prove_machine_bn`'s stages,
+    `mimc_s` and `prove_bn_s`."""
+    from .machine_bn import prove_machine_bn
+
+    def _mark(label, t0):
+        if timings is not None:
+            timings[label] = time.perf_counter() - t0
+
+    shape = MachineShape.of(proof)
+    t0 = time.perf_counter()
+    prog = build_program(airs, shape, binding,
+                         public_messages or [], inner_config,
+                         proof=proof,
+                         preprocessed_roots=inner_preprocessed_roots)
+    _mark("build_program", t0)
+    t0 = time.perf_counter()
+    chips = _outer_chips(prog)
+    _mark("outer_chips", t0)
+    outer_binding = binding + shape.to_bytes()
+    ocfg = outer_config or inner_config
+    roots: dict = {}
+    outer = prove_machine_bn(chips, binding=outer_binding, config=ocfg,
+                             timings=timings, device=device, vk_roots=roots)
+    vk = RecursionVKBN(
+        shape=shape, program_root=roots["VmAir"],
+        inner_preprocessed_roots=tuple(
+            (n, tuple(r))
+            for n, r in sorted((inner_preprocessed_roots or {}).items())),
+        n_instrs=len(prog.instrs), n_pubs=len(prog.pub_values))
+    return vk, outer
+
+
+def recursion_verify_bn(vk: RecursionVKBN, outer_proof, binding: bytes,
+                        public_messages: list[tuple] | None = None,
+                        outer_config: StarkConfig = DEFAULT_CONFIG,
+                        ) -> bool:
+    """Verify a shrink-layer proof in O(outer proof): session messages
+    are derived directly from (binding, messages, vk), the program root
+    comes from the vk — exactly the computation the wrap circuit
+    arithmetizes.  Host only."""
+    from .machine_bn import verify_machine_bn
+
+    msgs = _session_messages(vk.shape, binding, public_messages,
+                             dict((n, list(r))
+                                  for n, r in vk.inner_preprocessed_roots))
+    outer_binding = binding + vk.shape.to_bytes()
+    return verify_machine_bn(
+        outer_airs(), outer_proof, binding=outer_binding,
+        public_messages=msgs, config=outer_config,
+        preprocessed_roots={"VmAir": vk.program_root})
 
 
 def recursion_verify(airs: list[Air], shape, outer_proof: MachineProof,

@@ -1,16 +1,23 @@
-"""Host Poseidon2 in C (csrc/poseidon2_host.c), bound with ctypes.
+"""Host hashes in C, bound with ctypes: Poseidon2 over Baby-Bear
+(csrc/poseidon2_host.c) and MP-MiMC over the BN254 scalar field
+(csrc/mimc_bn254_host.c).
 
-Port of the Poseidon2 part of zktls_tpu.utils.native (`permute_batch`,
-`hash_rows`, `compress_pairs`); its MiMC and BN254 parts are not ported.
-Instances: 0 = width 16 (node compression, challenger), 1 = width 24
-(rate-16 Merkle leaf sponge).  Values are plain-form field elements (< P).
+Port of zktls_tpu.utils.native: its Poseidon2 part (`permute_batch`,
+`hash_rows`, `compress_pairs`) and its MiMC part (`mimc_hash_rows`,
+`mimc_compress_pairs`, the round constants injected from
+`snark.wrap.MIMC_ROUND_CONSTANTS`); its BN254 MSM part is not ported.
+Poseidon2 instances: 0 = width 16 (node compression, challenger), 1 =
+width 24 (rate-16 Merkle leaf sponge); values are plain-form field
+elements (< P).  MiMC values are plain BN254 scalars as little-endian u64
+limbs (4 per element).
 
-The library is built at first use with the system C compiler (`cc`, else
-`gcc`; `-O3 -shared -fPIC`) into build/native/, keyed by the hash of the
-source and flags, and its parameters are injected from
-`ops.poseidon2.get_params`.  Unlike the reference, a missing compiler or a
-failed build or load raises with the compiler's message: nothing falls back
-to the pure-Python permutation quietly.
+Each library is built at first use with the system C compiler (`cc`, else
+`gcc`) into build/native/, keyed by the hash of its source and flags:
+Poseidon2 with `-O3 -shared -fPIC`, MiMC with `-fopenmp` as well, since
+a full-width shrink hashes ~3e8 MiMC permutations.  Unlike the reference,
+a missing compiler, a compiler without OpenMP, or a failed build or load
+raises with the compiler's message: nothing falls back to the pure-Python
+hashes, or to a single-threaded MiMC, quietly.
 """
 
 from __future__ import annotations
@@ -27,15 +34,21 @@ import numpy as np
 from ..ops.field_ref import P
 
 __all__ = ["SOURCE", "build", "library", "permute_batch", "permute_ints",
-           "hash_rows", "compress_pairs"]
+           "hash_rows", "compress_pairs", "MIMC_SOURCE", "build_mimc",
+           "mimc_library", "mimc_hash_rows", "mimc_compress_pairs",
+           "set_mimc_threads", "mimc_threads"]
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "poseidon2_host.c"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CFLAGS = ["-O3", "-shared", "-fPIC"]
+MIMC_SOURCE = SOURCE.parent / "mimc_bn254_host.c"
+MIMC_CFLAGS = [*CFLAGS, "-fopenmp"]
 
 _WIDTH_TO_INST = {16: 0, 24: 1}
 _U32P = ctypes.POINTER(ctypes.c_uint32)
+_U64P = ctypes.POINTER(ctypes.c_uint64)
 _lib = None
+_mimc_lib = None
 
 
 def _compiler() -> str:
@@ -43,30 +56,44 @@ def _compiler() -> str:
         found = shutil.which(cc)
         if found:
             return found
-    raise RuntimeError("no C compiler (cc or gcc) found: the host Poseidon2 "
-                       "library cannot be built")
+    raise RuntimeError("no C compiler (cc or gcc) found: the host hash "
+                       "libraries cannot be built")
 
 
-def build(source: Path = SOURCE, build_dir: Path = BUILD_DIR
-          ) -> tuple[Path, str]:
-    """Compile the library unless a build of this exact source and flag set
-    exists.  Returns (library path, the compiler's report — empty when the
-    cached build was used).  Raises RuntimeError with the compiler's output
-    when the build fails."""
+def _build(source: Path, build_dir: Path, cflags: list[str]
+           ) -> tuple[Path, str]:
+    """Compile `source` with `cflags` into build_dir unless a build of this
+    exact source and flag set exists (named after the source's stem and
+    their hash).  Returns (library path, the compiler's report — empty when
+    the cached build was used).  Raises RuntimeError with the compiler's
+    output when the build fails."""
     src = Path(source).read_bytes()
-    key = hashlib.sha256(src + " ".join(CFLAGS).encode()).hexdigest()[:16]
-    lib = Path(build_dir) / f"poseidon2_host_{key}.so"
+    key = hashlib.sha256(src + " ".join(cflags).encode()).hexdigest()[:16]
+    lib = Path(build_dir) / f"{Path(source).stem}_{key}.so"
     if lib.exists():
         return lib, ""
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_compiler(), *CFLAGS, str(source), "-o", str(tmp)],
+    proc = subprocess.run([_compiler(), *cflags, str(source), "-o", str(tmp)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"building {source} failed ({proc.returncode}):\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
     return lib, proc.stdout + proc.stderr
+
+
+def build(source: Path = SOURCE, build_dir: Path = BUILD_DIR
+          ) -> tuple[Path, str]:
+    """Build the host Poseidon2 library (see `_build`)."""
+    return _build(source, build_dir, CFLAGS)
+
+
+def build_mimc(source: Path = MIMC_SOURCE, build_dir: Path = BUILD_DIR
+               ) -> tuple[Path, str]:
+    """Build the host MiMC library with OpenMP (see `_build`); the source
+    refuses to compile without it."""
+    return _build(source, build_dir, MIMC_CFLAGS)
 
 
 def _bind(path: Path):
@@ -147,3 +174,93 @@ def compress_pairs(pairs: np.ndarray) -> np.ndarray:
     library().p2_compress_pairs(0, pairs.ctypes.data_as(_U32P), n,
                                 out.ctypes.data_as(_U32P))
     return out
+
+
+# ---------------------------------------------------------------------------
+# MP-MiMC over the BN254 scalar field (the shrink layer's commitment hash)
+# ---------------------------------------------------------------------------
+
+
+def _bind_mimc(path: Path):
+    """Load the built MiMC library, declare its C interface and inject the
+    round constants."""
+    from ..snark.wrap import MIMC_ROUND_CONSTANTS
+
+    lib = ctypes.CDLL(str(path))
+    sz, c_int = ctypes.c_size_t, ctypes.c_int
+    lib.mimc_set_rc.argtypes = [_U64P]
+    lib.mimc_set_rc.restype = c_int
+    lib.mimc_hash_rows.argtypes = [_U64P, sz, sz, _U64P]
+    lib.mimc_hash_rows.restype = None
+    lib.mimc_compress_pairs.argtypes = [_U64P, sz, _U64P]
+    lib.mimc_compress_pairs.restype = None
+    lib.mimc_set_threads.argtypes = [c_int]
+    lib.mimc_set_threads.restype = c_int
+    lib.mimc_threads.argtypes = []
+    lib.mimc_threads.restype = c_int
+    lib.mimc_set_vector.argtypes = [c_int]
+    lib.mimc_set_vector.restype = c_int
+    rc = np.array([[(c >> (64 * j)) & 0xFFFFFFFFFFFFFFFF for j in range(4)]
+                   for c in MIMC_ROUND_CONSTANTS], dtype=np.uint64)
+    lib.mimc_set_rc(rc.ctypes.data_as(_U64P))
+    return lib
+
+
+def mimc_library():
+    """The loaded MiMC library, built on first use (raises on any
+    failure)."""
+    global _mimc_lib
+    if _mimc_lib is None:
+        _mimc_lib = _bind_mimc(build_mimc()[0])
+    return _mimc_lib
+
+
+def _u64(a, ndim: int, last: int) -> np.ndarray:
+    a = np.ascontiguousarray(a, dtype=np.uint64)
+    if a.ndim != ndim or a.shape[-1] != last:
+        raise ValueError(f"expected a {ndim}-d array of u64 limbs with last "
+                         f"dimension {last}, got {a.shape}")
+    return a
+
+
+def mimc_hash_rows(elems: np.ndarray) -> np.ndarray:
+    """(n, k, 4) plain u64 limb rows → (n, 4) digests: the MP-MiMC chain
+    over each row's k elements (`snark.wrap.mimc_hash`; any limb values,
+    reduced mod r)."""
+    elems = _u64(elems, 3, 4)
+    n, k, _ = elems.shape
+    out = np.zeros((n, 4), dtype=np.uint64)
+    mimc_library().mimc_hash_rows(elems.ctypes.data_as(_U64P), n, k,
+                                  out.ctypes.data_as(_U64P))
+    return out
+
+
+def mimc_compress_pairs(pairs: np.ndarray) -> np.ndarray:
+    """(n, 2, 4) plain u64 limb pairs → (n, 4) parent digests."""
+    pairs = _u64(pairs, 3, 4)
+    if pairs.shape[1] != 2:
+        raise ValueError(f"pairs must be (n, 2, 4), got {pairs.shape}")
+    out = np.zeros((pairs.shape[0], 4), dtype=np.uint64)
+    mimc_library().mimc_compress_pairs(pairs.ctypes.data_as(_U64P),
+                                       pairs.shape[0],
+                                       out.ctypes.data_as(_U64P))
+    return out
+
+
+def set_mimc_threads(n: int) -> int:
+    """Run the MiMC library on n OpenMP threads (n <= 0: OpenMP's default,
+    one per core); returns the count now in use.  Process-wide."""
+    return mimc_library().mimc_set_threads(int(n))
+
+
+def mimc_threads() -> int:
+    """The OpenMP threads the MiMC library runs on."""
+    return mimc_library().mimc_threads()
+
+
+def _set_mimc_vector(on: bool) -> bool:
+    """Test hook: let the MiMC library take its AVX-512 IFMA path where
+    the CPU has it (the default), or keep it to the scalar reference code,
+    so that both paths can be held to the same digests; returns whether
+    the vector path is now taken.  Process-wide."""
+    return bool(mimc_library().mimc_set_vector(int(bool(on))))

@@ -20,6 +20,13 @@
   (`StarkGuestProver.compress`), with the program size and outer chips
   that gives; `sha_compress_machine()`: the 256-row Sha256Air machine whose
   compress chip_smoke.py holds to its CPU bytes.
+* `SHRINKS`: the shrink rung — a compress proof proved once more under
+  MP-MiMC commitments over BN254 (`recursion.recursion_prove_bn`), with
+  the program size and outer chips that gives; `shrink_statement` builds
+  its binding, messages and inner vk root as the reference's
+  `StarkGuestProver.wrap` does; `fib_chain()`: the tiny chain of
+  tests/test_shrink_bn.py (Fibonacci → compress), whose shrink bytes the
+  card and the CPU are held to.
 
 Each session is a loopback recording (scripts/record_session_c02f_p256.py
 --suite ...) with a 512-byte JSON body of which 10 bytes are filtered,
@@ -45,7 +52,13 @@ from .stark.machine import ChipInstance
 __all__ = ["sha_machine", "Session", "SESSIONS", "SESSION_GUEST_INPUT",
            "session_machine", "Batch", "BATCHES", "batch_machine",
            "FixedMulAir", "preprocessed_machine", "Compress", "COMPRESSES",
-           "sha_compress_machine"]
+           "sha_compress_machine", "Shrink", "SHRINKS", "shrink_statement",
+           "FIB_CHAIN_CONFIG", "FIB_CHAIN_BINDING", "fib_chain",
+           "FIB_COMPRESS_CONFIG", "FIB_COMPRESS_BINDING",
+           "FIB_COMPRESS_REFERENCE", "SHA_MACHINE_SEED", "SHA_MACHINE_CONFIG",
+           "SHA_MACHINE_BINDING", "SHA_MACHINE_REFERENCE",
+           "SHA_QUOTIENT_REFERENCE", "sha_quotient_inputs", "BN_MACHINE_LOG_N",
+           "BN_MACHINE_CONFIG", "BN_MACHINE_BINDING", "BN_MACHINE_REFERENCE"]
 
 DATA = Path(__file__).resolve().parent / "data"
 
@@ -187,6 +200,109 @@ def sha_compress_machine() -> tuple[ChipInstance, list[tuple], bytes]:
     """(the 256-row Sha256Air chip, its public messages, its binding)."""
     inst, msgs = sha_machine(2, 100, SHA_COMPRESS_SEED)
     return inst, msgs, SHA_COMPRESS_BINDING
+
+
+@dataclass(frozen=True)
+class Shrink:
+    """The shrink rung of a compress at DEFAULT_CONFIG."""
+
+    #: the compress it shrinks (a key of COMPRESSES)
+    compress: str
+    #: the shrink program's instruction count
+    instrs: int
+    #: (chip name, rows, columns, preprocessed columns, perm columns) of
+    #: the outer machine, as in Compress.chips
+    chips: tuple
+
+
+#: the shrinks by name; the instruction and sponge-row counts come from
+#: the shape-only `build_program` of the compress proof's shape (real
+#: sponge rows 19,654 / 5,184 at widths 16 / 24)
+SHRINKS = {
+    "shrink_1303": Shrink(
+        "compress_1303", 1315687,
+        (("VmAir", 2097152, 24, 28, 40), ("Sponge16Air", 32768, 555, 0, 112),
+         ("Sponge24Air", 8192, 1019, 0, 144))),
+}
+
+
+def shrink_statement(vk_a, binding: bytes,
+                     public_messages: list[tuple]
+                     ) -> tuple[bytes, list[tuple], dict]:
+    """(binding, public messages, inner preprocessed roots) of the shrink
+    of a compress proof whose vk is `vk_a` and whose statement was
+    (binding, public_messages): the arguments the reference's
+    `StarkGuestProver.wrap` gives `recursion_prove_bn`."""
+    from .stark.recursion import _session_messages
+
+    a_binding = binding + vk_a.shape.to_bytes()
+    a_msgs = _session_messages(vk_a.shape, binding, public_messages)
+    return a_binding, a_msgs, {"VmAir": list(vk_a.program_root)}
+
+
+#: the tiny chain of tests/test_shrink_bn.py: Fibonacci(5) proved, then
+#: compressed, at this config and binding
+FIB_CHAIN_CONFIG = dict(log_blowup=2, num_queries=2, pow_bits=0,
+                        fri_final_size=16)
+FIB_CHAIN_BINDING = b"fib-chain"
+#: the Fibonacci inner of tests/test_torch_recursion.py, and the JAX
+#: package's compress of it (its vk and outer proof bytes, made by
+#: scripts/session_proof_cpu.py --compress fib --reference)
+FIB_COMPRESS_CONFIG = dict(log_blowup=2, num_queries=4, pow_bits=0,
+                           fri_final_size=16)
+FIB_COMPRESS_BINDING = b"fib-recursion"
+FIB_COMPRESS_REFERENCE = DATA / "fib_compress.jax.cbor"
+#: the 256-row Sha256Air machine of tests/test_torch_machine.py (2 seeded
+#: 100-byte messages), its config and binding, and the JAX package's proof
+#: of it (made by scripts/session_proof_cpu.py --machine sha --reference)
+SHA_MACHINE_SEED = 4404
+SHA_MACHINE_CONFIG = dict(log_blowup=2, num_queries=8, pow_bits=0,
+                          fri_final_size=16)
+SHA_MACHINE_BINDING = b"zktls-tpu-torch machine test"
+SHA_MACHINE_REFERENCE = DATA / "sha256_machine.jax.proof"
+#: the JAX package's eval_quotient_vm of that machine's chip on its LDE at
+#: `sha_quotient_inputs` (blowup 4, shift 31; made by the same command)
+SHA_QUOTIENT_REFERENCE = DATA / "sha256_quotient.jax.npy"
+
+
+def sha_quotient_inputs(n_constraints: int
+                        ) -> tuple[list[tuple], list[int], np.ndarray]:
+    """The seeded 74 challenges (4 coefficients each), 4 publics and
+    (n_constraints, 4) α powers at which tests/test_torch_machine.py
+    evaluates the 256-row Sha256Air chip's quotient."""
+    rng = np.random.default_rng(4405)
+    challenges = [tuple(int(x) for x in rng.integers(0, P, 4))
+                  for _ in range(74)]
+    publics = [int(x) for x in rng.integers(0, P, 4)]
+    return challenges, publics, rng.integers(0, P, (n_constraints, 4),
+                                             dtype=np.uint32)
+#: the preprocessed machine of tests/test_torch_shrink.py
+#: (preprocessed_machine(5)), its config and binding, and the JAX package's
+#: BN-committed proof of it (scripts/session_proof_cpu.py --machine bn
+#: --reference)
+BN_MACHINE_LOG_N = 5
+BN_MACHINE_CONFIG = dict(log_blowup=2, num_queries=6, pow_bits=4,
+                         fri_final_size=8)
+BN_MACHINE_BINDING = b"bn-machine"
+BN_MACHINE_REFERENCE = DATA / "bn_machine.jax.proof"
+
+
+def fib_chain(device="cpu"):
+    """(inner proof, compress vk, compress proof) of the tiny chain, proved
+    by the port on `device`."""
+    from .stark.config import StarkConfig
+    from .stark.machine import prove_machine
+    from .stark.recursion import recursion_prove
+
+    cfg = StarkConfig(**FIB_CHAIN_CONFIG)
+    trace, pub = fibonacci_trace(5)
+    inner = prove_machine(
+        [ChipInstance(air=FibonacciAir(), trace=trace, publics=pub)],
+        binding=FIB_CHAIN_BINDING, config=cfg, device=device)
+    vk_a, proof_a = recursion_prove([FibonacciAir()], inner,
+                                    FIB_CHAIN_BINDING, inner_config=cfg,
+                                    outer_config=cfg, device=device)
+    return inner, vk_a, proof_a
 
 
 def sha_machine(count: int, size: int, seed: int
