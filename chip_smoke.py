@@ -119,16 +119,45 @@ without printing a result:
      accept the proof after a bytes round trip of proof and vk, and reject
      it against a journal with a changed filtered byte, a vk with a
      changed program root, and a proof with one changed opened value;
- 12. one JSON line describing each kernel (launches: the compress's;
+ 12. the Groth16 layer (snark/, host code with the C MSM, as in the
+     reference), on the two paths the reference's host Groth16 can
+     finish (workload.SNARKS), with the launch counters reset just before
+     and read just after (K1 is launched no time: the BN machine commits
+     with MiMC, the circuits and Groth16 run on the host):
+     a. wrap_bn — the Fibonacci(5) machine of tests/test_stark_wrap.py
+        proved with BN254/MiMC commitments on the card (its bytes must
+        hash to the JAX package's) and verified; build_stark_wrap_circuit
+        over it and cs.check(): 150,312 constraints and 147,714 variables,
+        and the digests of its assignment and constraints equal the JAX
+        package's.  Build the host MSM library (csrc/bn254_msm_host.c)
+        and hold its G1 and G2 MSMs and fixed-base batches against the
+        pure-Python plain version on seeded points and scalars, exactly.
+        (This circuit's Groth16 setup and prove take ~270 s of host
+        Python, and the plain MSM at the prove's sizes ~1 hour of one
+        core: `python3 -m zktls_tpu_torch.profile_prove --workload
+        wrap_bn` runs them on their own);
+     b. journal_1303, journal_c02f — the journals of the 0x1303 and c02f
+        sessions' card proofs from phase 7 (their digests required; proved
+        here if the sessions path did not run) sealed under one CRS:
+        wrap_setup() (its vk must equal the bundled snark/wrap_vk.json),
+        each journal's circuit (counts and digests equal the JAX
+        package's), wrap_prove, then wrap_verify and simulate_zktls_verify
+        accept the seal and reject it against a journal with a changed
+        filtered byte and against the digest + 1; export_verifier("evm")
+        writes the three files, whose SHA-256 must equal the JAX
+        package's.  The setup and prove seconds and the seal's bytes are
+        printed; the 0x1303 session prove's K1 launches are this path's;
+ 13. one JSON line describing each kernel (launches: the compress's;
      permute: the grinding path's, its one caller; every path's launches
      under "launches_by_path");
- 13. last line: {"ok": true, "device": {...}}.
+ 14. last line: {"ok": true, "device": {...}}.
 
 `--only` runs phases 1-3 and the named paths of sha, sessions,
-preprocessed, c02f_x2, c02f_x8, compress, shrink (a check while working on
-one of them; it prints neither the kernels line nor the result; shrink
-runs compress first unless it was named).  Needs one card, nvcc
-(/usr/local/cuda), a C compiler with OpenMP and no network.
+preprocessed, c02f_x2, c02f_x8, compress, shrink, snark (a check while
+working on one of them; it prints neither the kernels line nor the
+result; shrink runs compress first unless it was named, snark the
+sessions it seals).  Needs one card, nvcc (/usr/local/cuda), a C compiler
+with OpenMP and no network.
 """
 
 from __future__ import annotations
@@ -175,7 +204,7 @@ BATCH_PROOF_SHA256 = {
 PARSER_FAULT = "StreamParserAir: constraint identity failed at zeta"
 #: the optional paths, in the order they run
 PATHS = ("sha", "sessions", "preprocessed", "c02f_x2", "c02f_x8",
-         "compress", "shrink")
+         "compress", "shrink", "snark")
 #: rows per block of a plain hash_rows held against the kernel
 PLAIN_ROWS = 1 << 21
 #: SHA-256 of the port's DEFAULT_CONFIG compress of the 256-row Sha256Air
@@ -292,19 +321,33 @@ def main() -> int:
     )
     from zktls_tpu_torch.stark.verifier import VerificationError
     from zktls_tpu_torch.utils import native
+    from zktls_tpu_torch.snark import bn254, wrap
+    from zktls_tpu_torch.snark.stark_wrap import build_stark_wrap_circuit
+    from zktls_tpu_torch.stark.machine_bn import (
+        prove_machine_bn,
+        verify_machine_bn,
+    )
+    from zktls_tpu_torch.verifier_export import (
+        export_verifier,
+        simulate_zktls_verify,
+    )
     from zktls_tpu_torch.workload import (
         BATCHES,
         COMPRESSES,
+        EXPORT_SHA256,
         FIB_CHAIN_BINDING,
         FIB_CHAIN_CONFIG,
         SESSIONS,
         SHRINKS,
+        SNARKS,
         FixedMulAir,
         fib_chain,
         preprocessed_machine,
+        r1cs_digests,
         sha_compress_machine,
         sha_machine,
         shrink_statement,
+        wrap_bn_machine,
     )
 
     dev = torch.device("cuda", 0)
@@ -1052,6 +1095,164 @@ def main() -> int:
         print(f"{tag} total {time.perf_counter() - t_start:.1f} s")
         return launches
 
+    def hold_msm() -> None:
+        """Phase 12a: the host MSM library against the plain version."""
+        t0 = time.perf_counter()
+        lib_path, _ = native.build_msm()
+        build_s = time.perf_counter() - t0
+        sizes = {"g1": 1024, "g2": 256, "g1_base": 128, "g2_base": 64}
+        points = {"g1": [bn254.G1], "g2": [bn254.G2]}
+        add = {"g1": bn254.g1_add, "g2": bn254.g2_add}
+        for group, pts in points.items():
+            while len(pts) < sizes[group]:      # G, 2G, 3G, ...
+                pts.append(add[group](pts[-1], pts[0]))
+        t0 = time.perf_counter()
+        for group, msm in (("g1", bn254.msm_g1), ("g2", bn254.msm_g2),
+                           ("g1_base", bn254.g1_base_mul_batch),
+                           ("g2_base", bn254.g2_base_mul_batch)):
+            n = sizes[group]
+            scalars = [int.from_bytes(host_rng.bytes(32), "little")
+                       for _ in range(n)]
+            scalars[0], scalars[1] = 0, bn254.R - 1
+            args = (scalars,) if group.endswith("base") else (
+                points[group], scalars)
+            _require(msm(*args) == msm(*args, native=False),
+                     f"the C {group} MSM != plain at {n}")
+        print(f"snark wrap_bn: build bn254_msm_host.c (-fopenmp) "
+              f"{build_s:.2f} s -> {lib_path.name}; C == pure-Python plain: "
+              f"msm_g1 at {sizes['g1']} points, msm_g2 at {sizes['g2']}, "
+              f"g1_base_mul_batch at {sizes['g1_base']} scalars, "
+              f"g2_base_mul_batch at {sizes['g2_base']} (0 and r - 1 among "
+              f"the seeded scalars), {time.perf_counter() - t0:.2f} s")
+
+    def snark_path(covered: set) -> dict:
+        """Phase 12; returns the K1 launches of the 0x1303 session prove
+        whose journal path b seals."""
+        # a. the STARK-verifier circuit over a BN machine proof
+        tag = "snark wrap_bn:"
+        spec = SNARKS["wrap_bn"]
+        chips, binding, cfg_kw = wrap_bn_machine()
+        cfg = StarkConfig(**cfg_kw)
+        k1.reset_launches()
+        p2.plain_calls = 0
+        t0 = time.perf_counter()
+        proof = prove_machine_bn(chips, binding, cfg, device=dev)
+        torch.cuda.synchronize(dev)
+        prove_s = time.perf_counter() - t0
+        blob = proof.to_bytes()
+        digest = hashlib.sha256(blob).hexdigest()
+        _require(digest == spec.digests["proof"],
+                 f"{tag} the card's BN proof differs from the JAX package's")
+        _require(verify_machine_bn([FibonacciAir()],
+                                   MachineProofBN.from_bytes(blob), binding,
+                                   config=cfg),
+                 f"{tag} verify_machine_bn rejected the proof")
+        t0 = time.perf_counter()
+        cs = build_stark_wrap_circuit([FibonacciAir()], proof, binding, [],
+                                      cfg, {})
+        circuit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _require(cs.check(), f"{tag} the circuit is not satisfied")
+        check_s = time.perf_counter() - t0
+        counts = (len(cs.constraints), cs.n_vars)
+        _require(counts == (spec.constraints, spec.variables),
+                 f"{tag} the circuit has {counts}")
+        digests = r1cs_digests(cs)
+        for key in ("assignment", "constraints"):
+            _require(digests[key] == spec.digests[key],
+                     f"{tag} the circuit's {key} differ from the JAX "
+                     "package's")
+        del cs
+        print(f"{tag} Fibonacci(5) BN machine ({cfg_kw}) proved on the card "
+              f"{prove_s:.2f} s: {len(blob)} bytes, sha256 {digest} == the "
+              "JAX package's; verify_machine_bn ok")
+        print(f"{tag} build_stark_wrap_circuit {circuit_s:.2f} s, "
+              f"cs.check() {check_s:.2f} s: {counts[0]} constraints, "
+              f"{counts[1]} variables; assignment sha256 "
+              f"{digests['assignment']}, constraints sha256 "
+              f"{digests['constraints']} == the JAX package's")
+        hold_msm()
+        launches = {"a": (dict(k1.launches), p2.plain_calls)}
+
+        # b. the journal seals of two sessions' card proofs, one CRS
+        sealed = {"1303": "journal_1303", "c02f": "journal_c02f"}
+        for name in sealed:
+            if name not in session_proofs:
+                launches_by_path[name] = session_path(name, covered)
+            _require(hashlib.sha256(session_proofs[name][1]).hexdigest()
+                     == SESSION_PROOF_SHA256[name],
+                     f"snark: the {name} proof is not the session's")
+        k1.reset_launches()
+        p2.plain_calls = 0
+        t0 = time.perf_counter()
+        keys = wrap.wrap_setup()
+        setup_s = time.perf_counter() - t0
+        vk = keys.vk()
+        bundled = json.loads((Path(wrap.__file__).parent
+                              / "wrap_vk.json").read_text())
+        _require(bundled["circuit"] == wrap.wrap_circuit_params()
+                 and all(json.loads(json.dumps(vk[k])) == bundled[k]
+                         for k in ("alpha1", "beta2", "gamma2", "delta2",
+                                   "ic")),
+                 "snark: wrap_setup().vk() differs from wrap_vk.json")
+        print(f"snark journal: wrap_setup {setup_s:.2f} s; its vk == the "
+              "bundled snark/wrap_vk.json")
+        for name, label in sealed.items():
+            tag = f"snark {label}:"
+            spec = SNARKS[label]
+            journal = session_proofs[name][0]
+            cs = wrap.build_wrap_circuit(journal)
+            counts = (len(cs.constraints), cs.n_vars)
+            _require(counts == (spec.constraints, spec.variables),
+                     f"{tag} the circuit has {counts}")
+            digests = r1cs_digests(cs)
+            for key in ("assignment", "constraints"):
+                _require(digests[key] == spec.digests[key],
+                         f"{tag} the circuit's {key} differ from the JAX "
+                         "package's")
+            t0 = time.perf_counter()
+            digest, seal = wrap.wrap_prove(keys, journal)
+            prove_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _require(wrap.wrap_verify(vk, digest, seal),
+                     f"{tag} wrap_verify rejected the seal")
+            verify_s = time.perf_counter() - t0
+            _require(simulate_zktls_verify(vk, journal, seal),
+                     f"{tag} simulate_zktls_verify rejected the seal")
+            bad, pos = _tamper_filtered(journal)
+            _require(not wrap.wrap_verify(vk, wrap.journal_digest_fr(bad),
+                                          seal)
+                     and not simulate_zktls_verify(vk, bad, seal),
+                     f"{tag} the seal verified against a changed journal")
+            _require(not wrap.wrap_verify(vk, digest + 1, seal),
+                     f"{tag} the seal verified against the digest + 1")
+            print(f"{tag} {len(journal)}-byte journal of the card proof, "
+                  f"circuit {counts[0]} constraints, {counts[1]} variables "
+                  f"(digests == the JAX package's); wrap_prove "
+                  f"{prove_s:.2f} s, seal {len(seal)} bytes; wrap_verify "
+                  f"{verify_s:.2f} s and simulate_zktls_verify accept; "
+                  f"filtered byte {pos} changed and digest + 1 rejected")
+        out = Path(__file__).resolve().parent / "build" / (
+            f"verifier-evm-{os.getpid()}")
+        try:
+            files = export_verifier("evm", out)
+            got = {f.name: hashlib.sha256(f.read_bytes()).hexdigest()
+                   for f in files}
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+        _require(got == EXPORT_SHA256,
+                 f"snark: the exported files differ from the JAX package's "
+                 f"({got})")
+        launches["b"] = (dict(k1.launches), p2.plain_calls)
+        _require(all(sum(got.values()) == 0 and plain == 0
+                     for got, plain in launches.values()),
+                 f"snark: the BN machine, circuits or Groth16 hashed with "
+                 f"Poseidon2 ({launches})")
+        print(f"snark: export_verifier('evm') files {sorted(got)} == the "
+              f"JAX package's; K1 launches and plain calls in paths a and b "
+              f"{launches}; total {time.perf_counter() - t_start:.1f} s")
+        return launches_by_path["1303"]
+
     launches_by_path = {}
     if "sha" in paths:
         launches_by_path.update(sha_path())
@@ -1074,6 +1275,9 @@ def main() -> int:
     # 11. the shrink rung, the slice's full-width path
     if "shrink" in paths:
         launches_by_path["shrink"] = shrink_path(covered)
+    # 12. the Groth16 layer
+    if "snark" in paths:
+        launches_by_path["snark"] = snark_path(covered)
     if args.only is not None:
         print(f"--only {','.join(paths)}: done in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -1082,7 +1286,7 @@ def main() -> int:
                 **{k: launches_by_path["compress"][k]
                    for k in ("hash_rows", "merkle_levels")}}
 
-    # 12. kernels (launches: the compress's; permute: the grinding path's,
+    # 13. kernels (launches: the compress's; permute: the grinding path's,
     # its one caller)
     print(json.dumps({"kernels": [{
         "name": f"poseidon2_{name}",
@@ -1100,7 +1304,7 @@ def main() -> int:
         "bound_by": b["bound_by"],
         "library_ms": None,
     } for name, (_, ms, plain_ms, b) in timed.items()]}))
-    # 13. result
+    # 14. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,6 +9,8 @@ PyTorch port on the CPU, and check the proof with both packages' verifiers.
     JAX_PLATFORMS=cpu python scripts/session_proof_cpu.py --shrink fib|sha
     JAX_PLATFORMS=cpu python scripts/session_proof_cpu.py --machine sha|bn \
         [--reference]
+    JAX_PLATFORMS=cpu python scripts/session_proof_cpu.py --snark bn|journal \
+        [--reference]
 
 Replays the session's committed GuestInput (`--session`: c02f, the
 default, 1302 or 1303; `zktls_tpu_torch.workload.SESSIONS`) with the
@@ -65,11 +67,34 @@ tests/test_torch_shrink.py (`workload.BN_MACHINE_*`,
 (Fibonacci(5), compress, shrink; `workload.fib_chain`) with the port on
 the CPU and, unless `--no-reference`, with the JAX package, prints both
 shrink proofs' SHA-256 (chip_smoke.py's SHRINK_PROOF_SHA256) and requires
-them equal.  `--shrink sha` compresses the 256-row Sha256Air machine as
+them equal; it also writes the JAX package's compress and shrink vks to
+`build/fib_chain_vks.jax.cbor` and requires them equal to the committed
+`zktls_tpu_torch/data/fib_chain_vks.jax.cbor`
+(`workload.FIB_CHAIN_VKS_REFERENCE`, which tests/test_torch_wrap.py
+reads).  `--shrink sha` compresses the 256-row Sha256Air machine as
 `--compress sha` does and shrinks that compress proof at DEFAULT_CONFIG
 (VmAir 2^20 rows), printing the stage seconds, the peak resident memory,
 the proof's SHA-256 and the JAX package's `recursion_verify_bn` verdict.
 The MiMC library runs on `--threads` threads too.
+`--snark bn` runs the `wrap_bn` Groth16 path of `workload.SNARKS` with the
+port on the CPU: the Fibonacci(5) BN machine proof (its bytes must equal
+the committed JAX proof, `zktls_tpu_torch/data/fib_wrap_bn.jax.proof`),
+`build_stark_wrap_circuit` over it (its constraint and variable counts and
+`r1cs_digests`), then Groth16 `setup` at `WRAP_BN_SEED`, `prove` at
+`WRAP_BN_RANDOMNESS` and `verify` (accept the statement digest, reject it
+^ 1), printing each step's seconds and every digest and requiring each to
+equal the committed one (~7 min); `--reference` runs the same steps in the
+JAX package, writes its BN proof to `build/fib_wrap_bn.jax.proof` (or
+`--out`) and requires both packages' bytes and digests equal (~7 min more).
+`--snark journal` seals the journals of the c02f and 0x1303 sessions
+(`journal_c02f`, `journal_1303`) with the port: `wrap_setup()` (its vk
+must equal the bundled `snark/wrap_vk.json`), each journal's circuit
+(counts and digests), `wrap_prove`, `wrap_verify` and
+`simulate_zktls_verify` (accept; reject a changed filtered byte and the
+digest + 1), and `export_verifier("evm")` (file digests, `EXPORT_SHA256`);
+`--reference` also holds the JAX package's `wrap_setup().vk()`, circuits
+and exported files to the port's and lets its `wrap_verify` and
+`simulate_zktls_verify` judge the port's seals.
 `--no-reference --out PROOF` proves on a host without the JAX package, such
 as the card machine's, and keeps the proof where the caller wants it.
 """
@@ -103,8 +128,10 @@ def main() -> None:
                     help="prove tests/test_torch_machine.py's (sha) or "
                          "tests/test_torch_shrink.py's (bn) machine "
                          "against its committed JAX proof instead")
+    ap.add_argument("--snark", choices=("bn", "journal"),
+                    help="run this Groth16 path of workload.SNARKS instead")
     ap.add_argument("--reference", action="store_true",
-                    help="--compress fib, --machine: make the JAX "
+                    help="--compress fib, --machine, --snark: make the JAX "
                          "package's bytes again and hold them to the "
                          "committed file")
     ap.add_argument("--threads", type=int, default=8,
@@ -138,6 +165,9 @@ def main() -> None:
         return
     if args.machine:
         (machine_sha if args.machine == "sha" else machine_bn)(args)
+        return
+    if args.snark:
+        (snark_bn if args.snark == "bn" else snark_journal)(args)
         return
     if args.compress:
         compress_sha(args, out)
@@ -541,6 +571,20 @@ def shrink_fib(args, out: pathlib.Path) -> None:
         if jblob != blob or jvk_b.to_bytes() != vk_b.to_bytes():
             sys.exit("the two packages' shrink proofs or vks differ")
         print("port == JAX package (proof and vk bytes)")
+        from zktls_tpu_torch.core import cbor
+        from zktls_tpu_torch.workload import FIB_CHAIN_VKS_REFERENCE
+
+        vks = cbor.dumps({"vk_a": jvk_a.to_bytes(),
+                          "vk_b": jvk_b.to_bytes()})
+        vks_out = BUILD / FIB_CHAIN_VKS_REFERENCE.name
+        vks_out.write_bytes(vks)
+        print(f"JAX package vks sha256 {hashlib.sha256(vks).hexdigest()} "
+              f"-> {vks_out}")
+        if (not FIB_CHAIN_VKS_REFERENCE.exists()
+                or FIB_CHAIN_VKS_REFERENCE.read_bytes() != vks):
+            sys.exit("the JAX package's vks differ from the committed "
+                     "file")
+        print("JAX package vks == committed")
     print(f"total {time.perf_counter() - t_all:.1f} s; {_peak_rss()}")
 
 
@@ -585,6 +629,219 @@ def shrink_sha(args, out: pathlib.Path) -> None:
         if verdict != "ok":
             sys.exit("the JAX package rejected the shrink proof")
     print(f"total {time.perf_counter() - t_all:.1f} s")
+
+
+_MISMATCHED: list[str] = []
+
+
+def _check_digest(label: str, got: str, want: str) -> None:
+    """Print a digest beside the committed one; a mismatch is recorded
+    (every digest is printed first) and `_exit_on_mismatch` fails."""
+    ok = got == want
+    print(f"{label}: sha256 {got} ({'==' if ok else '!='} committed)")
+    if not ok:
+        _MISMATCHED.append(label)
+
+
+def _exit_on_mismatch() -> None:
+    if _MISMATCHED:
+        sys.exit(f"differ from the committed digests: {_MISMATCHED}")
+
+
+def _wrap_bn_steps(pkg: str, blob: bytes | None = None) -> dict:
+    """The `wrap_bn` path in one package ("zktls_tpu_torch" or
+    "zktls_tpu"): the BN proof (proved unless `blob` is given), its
+    circuit's counts and digests, Groth16 setup / prove / verify; prints
+    each step's seconds and returns what the path gave."""
+    import importlib
+
+    from zktls_tpu_torch.workload import (
+        WRAP_BN_RANDOMNESS,
+        WRAP_BN_SEED,
+        r1cs_digests,
+        wrap_bn_machine,
+    )
+
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    cfg_cls = mod("stark.config").StarkConfig
+    mbn = mod("stark.machine_bn")
+    fib = mod("models.fibonacci").FibonacciAir
+    chips, binding, cfg_kw = wrap_bn_machine()
+    cfg = cfg_cls(**cfg_kw)
+    out = {}
+    t0 = time.perf_counter()
+    if blob is None:
+        kw = {"device": "cpu"} if pkg == "zktls_tpu_torch" else {}
+        inst = mod("stark.machine").ChipInstance(
+            air=fib(), trace=chips[0].trace, publics=chips[0].publics)
+        blob = mbn.prove_machine_bn([inst], binding, cfg, **kw).to_bytes()
+    proof = mbn.MachineProofBN.from_bytes(blob)
+    out["proof_bytes"] = blob
+    out["prove_s"] = time.perf_counter() - t0
+    sw = mod("snark.stark_wrap")
+    g16 = mod("snark.groth16")
+    t0 = time.perf_counter()
+    cs = sw.build_stark_wrap_circuit([fib()], proof, binding, [], cfg, {})
+    out["circuit_s"] = time.perf_counter() - t0
+    if not cs.check():
+        sys.exit(f"{pkg}: the wrap_bn circuit is not satisfied")
+    out["counts"] = (len(cs.constraints), cs.n_vars)
+    out.update(r1cs_digests(cs))
+    stmt = sw.statement_digest_fr(binding, [], {})
+    t0 = time.perf_counter()
+    keys = g16.setup(cs, seed=WRAP_BN_SEED)
+    out["setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g16_proof = g16.prove(keys, cs, randomness=WRAP_BN_RANDOMNESS)
+    out["g16_prove_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["verify"] = (g16.verify(keys.vk(), [stmt], g16_proof),
+                     g16.verify(keys.vk(), [stmt ^ 1], g16_proof))
+    out["verify_s"] = time.perf_counter() - t0
+    out["groth16_bytes"] = g16_proof.to_bytes()
+    print(f"{pkg}: BN proof {out['prove_s']:.1f} s, circuit "
+          f"{out['circuit_s']:.1f} s ({out['counts'][0]} constraints, "
+          f"{out['counts'][1]} variables), setup {out['setup_s']:.1f} s, "
+          f"prove {out['g16_prove_s']:.1f} s, verify {out['verify_s']:.1f} "
+          f"s (statement: {out['verify'][0]}, statement ^ 1: "
+          f"{out['verify'][1]}); {_peak_rss()}")
+    return out
+
+
+def snark_bn(args) -> None:
+    """`--snark bn [--reference]` (module docstring)."""
+    from zktls_tpu_torch.workload import SNARKS, WRAP_BN_REFERENCE
+
+    spec = SNARKS["wrap_bn"]
+    runs = {"port": _wrap_bn_steps("zktls_tpu_torch")}
+    if args.reference:
+        runs["JAX package"] = _wrap_bn_steps("zktls_tpu")
+        out = args.out or BUILD / WRAP_BN_REFERENCE.name
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_bytes(runs["JAX package"]["proof_bytes"])
+        print(f"JAX package BN proof -> {out}")
+    for label, got in runs.items():
+        if got["counts"] != (spec.constraints, spec.variables):
+            sys.exit(f"{label}: the circuit has {got['counts']}")
+        if got["verify"] != (True, False):
+            sys.exit(f"{label}: Groth16 verify gave {got['verify']}")
+        _check_digest(f"{label} BN proof",
+                      hashlib.sha256(got["proof_bytes"]).hexdigest(),
+                      spec.digests["proof"])
+        for key in ("assignment", "constraints"):
+            _check_digest(f"{label} circuit {key}", got[key],
+                          spec.digests[key])
+        _check_digest(f"{label} Groth16 proof",
+                      hashlib.sha256(got["groth16_bytes"]).hexdigest(),
+                      spec.digests["groth16"])
+    _exit_on_mismatch()
+    if WRAP_BN_REFERENCE.read_bytes() != runs["port"]["proof_bytes"]:
+        sys.exit("the port's BN proof differs from the committed JAX bytes")
+    print("port == committed JAX bytes and digests"
+          + (" == live JAX package" if args.reference else ""))
+
+
+def snark_journal(args) -> None:
+    """`--snark journal [--reference]` (module docstring)."""
+    import json
+    import tempfile
+
+    from zktls_tpu_torch.core.types import GuestInput
+    from zktls_tpu_torch.guest.program import run_guest
+    from zktls_tpu_torch.snark import wrap
+    from zktls_tpu_torch.verifier_export import (
+        export_verifier,
+        simulate_zktls_verify,
+    )
+    from zktls_tpu_torch.workload import (
+        EXPORT_SHA256,
+        SESSIONS,
+        SNARKS,
+        r1cs_digests,
+    )
+
+    t0 = time.perf_counter()
+    keys = wrap.wrap_setup()
+    vk = keys.vk()
+    print(f"port wrap_setup {time.perf_counter() - t0:.1f} s")
+    bundled = json.loads((pathlib.Path(wrap.__file__).parent
+                          / "wrap_vk.json").read_text())
+    if bundled["circuit"] != wrap.wrap_circuit_params() or any(
+            json.loads(json.dumps(vk[k])) != bundled[k]
+            for k in ("alpha1", "beta2", "gamma2", "delta2", "ic")):
+        sys.exit("the port's wrap_setup().vk() differs from wrap_vk.json")
+    print("port wrap_setup().vk() == bundled wrap_vk.json")
+    if args.reference:
+        from zktls_tpu.snark import wrap as jwrap
+        from zktls_tpu.verifier_export import (
+            simulate_zktls_verify as jsimulate,
+        )
+
+        t0 = time.perf_counter()
+        jvk = jwrap.wrap_setup().vk()
+        print(f"JAX package wrap_setup {time.perf_counter() - t0:.1f} s")
+        if jvk != vk:
+            sys.exit("the JAX package's wrap_setup().vk() differs")
+        print("JAX package wrap_setup().vk() == the port's")
+    for name in ("1303", "c02f"):
+        label = f"journal_{name}"
+        spec = SNARKS[label]
+        journal = run_guest(GuestInput.from_cbor(
+            SESSIONS[name].guest_input.read_bytes()),
+            require_trust_anchor=False).journal
+        cs = wrap.build_wrap_circuit(journal)
+        counts = (len(cs.constraints), cs.n_vars)
+        if counts != (spec.constraints, spec.variables):
+            sys.exit(f"{label}: the circuit has {counts}")
+        digests = r1cs_digests(cs)
+        if args.reference:
+            jd = r1cs_digests(jwrap.build_wrap_circuit(journal))
+            if jd != digests:
+                sys.exit(f"{label}: the JAX package's circuit differs")
+        for key in ("assignment", "constraints"):
+            _check_digest(f"{label} circuit {key}", digests[key],
+                          spec.digests[key])
+        t0 = time.perf_counter()
+        digest, seal = wrap.wrap_prove(keys, journal)
+        prove_s = time.perf_counter() - t0
+        bad = bytearray(journal)
+        bad[-1] ^= 1
+        verdicts = {
+            "wrap_verify": wrap.wrap_verify(vk, digest, seal),
+            "simulate_zktls_verify": simulate_zktls_verify(vk, journal, seal),
+            "wrap_verify digest + 1": wrap.wrap_verify(vk, digest + 1, seal),
+            "simulate_zktls_verify changed journal": simulate_zktls_verify(
+                vk, bytes(bad), seal)}
+        if args.reference:
+            verdicts["JAX wrap_verify"] = jwrap.wrap_verify(vk, digest, seal)
+            verdicts["JAX simulate_zktls_verify"] = jsimulate(vk, journal,
+                                                              seal)
+            verdicts["JAX simulate_zktls_verify changed journal"] = \
+                jsimulate(vk, bytes(bad), seal)
+        print(f"{label}: {len(journal)}-byte journal, wrap_prove "
+              f"{prove_s:.1f} s, seal {len(seal)} bytes; {verdicts}")
+        if [v for k, v in verdicts.items()] != [
+                not ("+ 1" in k or "changed" in k) for k in verdicts]:
+            sys.exit(f"{label}: a verdict is wrong")
+    with tempfile.TemporaryDirectory() as tmp:
+        files = export_verifier("evm", pathlib.Path(tmp) / "port")
+        mine = {f.name: f.read_bytes() for f in files}
+        for fname, data in mine.items():
+            _check_digest(f"export {fname}",
+                          hashlib.sha256(data).hexdigest(),
+                          EXPORT_SHA256[fname])
+        if args.reference:
+            from zktls_tpu.verifier_export import export_verifier as jexport
+
+            ref = {f.name: f.read_bytes()
+                   for f in jexport("evm", pathlib.Path(tmp) / "jax")}
+            if ref != mine:
+                sys.exit("the JAX package's exported files differ")
+            print("JAX package export_verifier files == the port's")
+    _exit_on_mismatch()
+    print(f"{_peak_rss()}")
 
 
 if __name__ == "__main__":

@@ -148,12 +148,11 @@ def test_prove_missing_input_file(capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["prove", "--network"], ["prove", "--wrap"],
-    ["prove"], ["serve"], ["export-verifier"]],
-    ids=["network", "wrap", "live", "serve", "export-verifier"])
+    ["prove", "--network"], ["prove"], ["serve"]],
+    ids=["network", "live", "serve"])
 def test_unported_modes_exit_1(request_json, capsys, extra):
-    """Live recording (no --fixture) and the modes beyond the machine proof
-    are refused with a message, not run some other way."""
+    """Live recording (no --fixture), the remote prover and the prover
+    service are refused with a message, not run some other way."""
     args = list(extra)
     if extra[0] == "prove":
         args += ["-i", request_json]
@@ -200,6 +199,59 @@ def test_prove_compress_compresses_then_verifies(anchored, request_json,
                      ("verify_compressed", journal, b"compressed blob")]
     assert capsys.readouterr().out.splitlines()[-1] == \
         "proof: 0x" + b"compressed blob".hex()
+
+
+def test_prove_wrap_wraps_then_verifies(anchored, request_json, monkeypatch,
+                                        capsys, reference):
+    """`prove -p stark --wrap`: the prover's wrap (with a timings dict),
+    then its verify_wrapped, each on the bytes the step before gave; the
+    sealed blob is what the command prints, and --wrap takes precedence
+    over --compress as in the reference.  The prover runs on the CPU with
+    its machine proof and wrap stubbed."""
+    calls = []
+
+    class _Prover(tstark.StarkGuestProver):
+        def __init__(self):
+            super().__init__(device="cpu")
+
+        def prove(self, guest_input, timings=None):
+            journal = tstark.run_guest(guest_input).journal
+            calls.append(("prove", journal))
+            return journal, b"inner proof"
+
+        def wrap(self, journal, proof, groth16_keys=None,
+                 shrink_config=None, timings=None, **kw):
+            calls.append(("wrap", journal, proof, timings))
+            return b"sealed blob"
+
+        def verify_wrapped(self, journal, blob):
+            calls.append(("verify_wrapped", journal, blob))
+            return True
+
+    monkeypatch.setattr(tstark, "StarkGuestProver", _Prover)
+    assert main(["prove", "-i", request_json, "-p", "stark", "--fixture",
+                 str(SESSION_GUEST_INPUT), "--wrap", "--compress"]) == 0
+    journal = reference[0]
+    assert calls == [("prove", journal),
+                     ("wrap", journal, b"inner proof", {}),
+                     ("verify_wrapped", journal, b"sealed blob")]
+    assert capsys.readouterr().out.splitlines()[-1] == \
+        "proof: 0x" + b"sealed blob".hex()
+
+
+def test_export_verifier_writes_the_reference_files(tmp_path, capsys):
+    """`export-verifier -t evm -o DIR`: the port's three files are the
+    JAX package's bytes, and the command prints one line per file as the
+    reference does."""
+    mine, ref = tmp_path / "port", tmp_path / "ref"
+    assert main(["export-verifier", "-t", "evm", "-o", str(mine)]) == 0
+    printed = capsys.readouterr().out
+    assert jmain(["export-verifier", "-t", "evm", "-o", str(ref)]) == 0
+    assert capsys.readouterr().out == printed.replace(str(mine), str(ref))
+    names = sorted(p.name for p in mine.iterdir())
+    assert names == ["Groth16Verifier.sol", "ZkTlsVerifier.sol", "vk.json"]
+    for name in names:
+        assert (mine / name).read_bytes() == (ref / name).read_bytes()
 
 
 def test_prove_mock_compress_as_the_reference(anchored, request_json,
@@ -284,11 +336,12 @@ def test_cli_replays_without_jax_or_cryptography(request_json):
 
 
 def test_native_and_batch_path_without_jax_or_cryptography():
-    """The host Poseidon2 and MiMC libraries, the batch path (two sessions'
-    replays, merge_guest_outputs, build_chip_instances,
-    batch_public_messages) and the compress and shrink rungs' modules in a
-    process of their own import no module of jax, zktls_tpu or
-    cryptography."""
+    """The host Poseidon2, MiMC and MSM libraries (one MSM of 64 points
+    through C), the batch path (two sessions' replays,
+    merge_guest_outputs, build_chip_instances, batch_public_messages), the
+    compress and shrink rungs' modules and the Groth16 layer's (snark/,
+    verifier_export) in a process of their own import no module of jax,
+    zktls_tpu or cryptography."""
     code = (
         "import sys\n"
         "from zktls_tpu_torch.ops.poseidon2 import Poseidon2\n"
@@ -296,6 +349,12 @@ def test_native_and_batch_path_without_jax_or_cryptography():
         "from zktls_tpu_torch.stark import debug, recursion\n"
         "from zktls_tpu_torch.stark import commit_bn, machine_bn\n"
         "from zktls_tpu_torch.snark import wrap\n"
+        "from zktls_tpu_torch.snark import bn254, groth16, r1cs, "
+        "stark_wrap\n"
+        "from zktls_tpu_torch import verifier_export\n"
+        "pts = bn254.g1_base_mul_batch(list(range(1, 65)))\n"
+        "assert bn254.msm_g1(pts, [1] * 64) == "
+        "bn254.g1_mul(bn254.G1, 64 * 65 // 2)\n"
         "from zktls_tpu_torch.stark.chips import bytes_table\n"
         "from zktls_tpu_torch import profile_prove\n"
         "from zktls_tpu_torch.workload import batch_machine\n"

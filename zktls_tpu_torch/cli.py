@@ -5,14 +5,18 @@ commands/prove.rs:14-48):
 
   python -m zktls_tpu_torch.cli prove -i <request.json> -t <chain>
               [-p <prover>] [--mock | --local] --fixture <recorded.cbor>
-              [--compress] [-o <out.json>]
+              [--compress | --wrap] [-o <out.json>]
+  python -m zktls_tpu_torch.cli export-verifier [-t <chain>] [-o <dir>]
 
 Port of zktls_tpu.cli (same flags, output lines and JSON file).  `--fixture`
 replays a recorded session tape; the STARK prover runs on the CUDA card.
 `--compress` wraps the machine proof in the recursion layer and verifies
-it through the vk fast path.  Not ported yet, and each reported as an
-error (exit code 1): live recording (no `--fixture`), `--network`,
-`--wrap`, and the `serve` and `export-verifier` commands.
+it through the vk fast path; `--wrap` runs compress, shrink and the
+Groth16 seal (`StarkGuestProver.wrap`) and verifies the seal.
+`export-verifier` writes the on-chain verifier of the journal wrap
+(verifier_export.py).  Not ported yet, and each reported as an error
+(exit code 1): live recording (no `--fixture`), `--network` and the
+`serve` command.
 """
 
 from __future__ import annotations
@@ -68,9 +72,8 @@ def cmd_prove(args) -> int:
         print(f"error: input file {args.input!r} does not exist",
               file=sys.stderr)
         return 2
-    for flag in ("network", "wrap"):
-        if getattr(args, flag):
-            raise _not_ported(f"--{flag}")
+    if args.network:
+        raise _not_ported("--network")
     guest_input = _load_guest_input(args)
 
     if args.mock:
@@ -83,7 +86,17 @@ def cmd_prove(args) -> int:
         prover = StarkGuestProver()
 
     output, proof = prover.prove(guest_input)
-    if args.compress and proof:
+    if args.wrap and proof:
+        if not hasattr(prover, "wrap"):
+            print("error: --wrap needs the stark prover", file=sys.stderr)
+            return 2
+        log.info("wrapping: compress -> shrink -> Groth16")
+        timings: dict = {}
+        proof = prover.wrap(output, proof, timings=timings)
+        log.info("wrap timings: %s", timings)
+        assert prover.verify_wrapped(output, proof)
+        log.info("Groth16 seal verified (pairing check)")
+    elif args.compress and proof:
         if not hasattr(prover, "compress"):
             print("error: --compress needs the stark prover",
                   file=sys.stderr)
@@ -110,7 +123,13 @@ def cmd_serve(args) -> int:
 
 
 def cmd_export_verifier(args) -> int:
-    raise _not_ported("the export-verifier command")
+    from .verifier_export import export_verifier
+
+    out_dir = pathlib.Path(args.output or f"verifier-{args.target}")
+    files = export_verifier(args.target, out_dir)
+    for f in files:
+        print(f"wrote {f}")
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -145,13 +164,14 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--compress", action="store_true",
                     help="wrap the machine proof in the recursion layer")
     pr.add_argument("--wrap", action="store_true",
-                    help="full chain to a Groth16 seal (not ported yet)")
+                    help="full chain to a 256-byte Groth16 seal: "
+                    "compress -> shrink (BN254/MiMC) -> Groth16 "
+                    "(the STARK verifier is the circuit)")
     pr.add_argument("-o", "--output", help="write journal+proof JSON here")
     pr.set_defaults(func=cmd_prove)
 
     ev = sub.add_parser("export-verifier",
-                        help="export an on-chain verifier contract "
-                        "(not ported yet)")
+                        help="export an on-chain verifier contract")
     ev.add_argument("-t", "--target", choices=TARGET_CHAINS, default="evm")
     ev.add_argument("-p", "--prover", choices=["stark"], default="stark")
     ev.add_argument("-o", "--output", help="output directory")

@@ -1,7 +1,8 @@
 """Where the time of one prove goes, on the card.
 
     python3 -m zktls_tpu_torch.profile_prove [--workload sha|c02f|1302|1303|
-        c02f_x2|c02f_x8|compress_1303|compress_c02f|shrink_1303]
+        c02f_x2|c02f_x8|compress_1303|compress_c02f|shrink_1303|wrap_bn|
+        wrap_size_fib]
         [--spill-bytes B]
         [--chunked-deep-bytes B] [--profiler torch|cprofile|none]
 
@@ -45,6 +46,26 @@ compressed on the card as above, then the compress proof shrunk once by
 the device seconds and busy share, device time by kind, peak device
 memory, the process's peak resident memory, the MiMC threads and the
 proof's size and SHA-256.
+
+`wrap_bn` (`workload.SNARKS`): the Groth16 STARK-verifier wrap of
+tests/test_stark_wrap.py:24-88 — the Fibonacci(5) BN machine proved on the
+card (no K1 launch; its bytes must hash to the JAX package's digest), then
+on the host `build_stark_wrap_circuit` (its counts and `r1cs_digests`
+required), Groth16 `setup` (WRAP_BN_SEED), `prove` (WRAP_BN_RANDOMNESS;
+its bytes must hash to the JAX package's digest) and `verify` (accept the
+statement digest, reject it ^ 1), with the seconds of each; then every MSM
+of that prove (recorded as the prove made it) is held against the
+pure-Python plain version on the same points and scalars, split across the
+host's cores in worker processes (the plain MSM at these sizes is ~1 hour
+of one core).
+
+`wrap_size_fib`: how far `build_stark_wrap_circuit` gets over the tiny
+chain's shrink proof (`workload.fib_chain`, shrunk on the card as
+`StarkGuestProver.wrap` would), built in a worker process that reports its
+constraints, variables and resident memory every 30 s; the worker is
+stopped at 30 minutes or when its resident memory reaches the host's
+available memory less 10 GiB.  Prints the outcome, the last report and the
+caps.
 """
 
 from __future__ import annotations
@@ -157,7 +178,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", default="sha",
                     choices=("sha", "session", *SESSIONS, *BATCHES,
-                             *COMPRESSES, *SHRINKS))
+                             *COMPRESSES, *SHRINKS, "wrap_bn",
+                             "wrap_size_fib"))
     ap.add_argument("--spill-bytes", type=float, default=SPILL_BYTES,
                     help="prove_machine's host-spill limit (default "
                          f"{SPILL_BYTES:g})")
@@ -185,6 +207,10 @@ def main() -> int:
         return compress_main(args, dev, card, sms, clock_mhz)
     if args.workload in SHRINKS:
         return shrink_main(args, dev, card)
+    if args.workload == "wrap_bn":
+        return wrap_bn_main(dev, card)
+    if args.workload == "wrap_size_fib":
+        return wrap_size_main(dev, card)
     if args.workload == "sha":
         inst, _ = sha_machine(8, 3000, SEED)
         chips, binding = [inst], b"chip-smoke sha256 machine"
@@ -427,6 +453,255 @@ def shrink_main(args, dev, card: str) -> int:
         "proof_sha256": hashlib.sha256(proof).hexdigest(),
     })
     print(json.dumps(result))
+    return 0
+
+
+def _plain_msm(group: str, points: list, scalars: list):
+    """One slice of a plain MSM (a worker process's share)."""
+    from .snark import bn254
+
+    fn = bn254.msm_g1 if group == "g1" else bn254.msm_g2
+    return fn(points, scalars, native=False)
+
+
+def wrap_bn_main(dev, card: str) -> int:
+    """The `wrap_bn` workload (module docstring)."""
+    import hashlib
+    import multiprocessing
+    import os
+    import resource
+    from unittest import mock
+
+    from .snark import bn254, groth16
+    from .snark.stark_wrap import build_stark_wrap_circuit, \
+        statement_digest_fr
+    from .stark.config import StarkConfig
+    from .stark.machine_bn import prove_machine_bn
+    from .workload import (
+        SNARKS,
+        WRAP_BN_RANDOMNESS,
+        WRAP_BN_SEED,
+        r1cs_digests,
+        wrap_bn_machine,
+    )
+
+    spec = SNARKS["wrap_bn"]
+    chips, binding, cfg_kw = wrap_bn_machine()
+    cfg = StarkConfig(**cfg_kw)
+    seconds: dict = {}
+    checks: dict = {}
+    cuda_poseidon2.reset_launches()
+    t0 = time.perf_counter()
+    proof = prove_machine_bn(chips, binding, cfg, device=dev)
+    torch.cuda.synchronize(dev)
+    seconds["bn_prove"] = time.perf_counter() - t0
+    launches = dict(cuda_poseidon2.launches)
+    blob = proof.to_bytes()
+    checks["bn_proof == JAX digest"] = (
+        hashlib.sha256(blob).hexdigest() == spec.digests["proof"])
+    t0 = time.perf_counter()
+    cs = build_stark_wrap_circuit([chips[0].air], proof, binding, [], cfg,
+                                  {})
+    seconds["circuit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks["cs.check()"] = cs.check()
+    seconds["check"] = time.perf_counter() - t0
+    counts = (len(cs.constraints), cs.n_vars)
+    checks["counts"] = counts == (spec.constraints, spec.variables)
+    digests = r1cs_digests(cs)
+    for key in ("assignment", "constraints"):
+        checks[f"{key} == JAX digest"] = digests[key] == spec.digests[key]
+    stmt = statement_digest_fr(binding, [], {})
+    t0 = time.perf_counter()
+    keys = groth16.setup(cs, seed=WRAP_BN_SEED)
+    seconds["setup"] = time.perf_counter() - t0
+    calls = []
+
+    def recorded(fn, group):
+        def msm(points, scalars):
+            out = fn(points, scalars)
+            calls.append((group, points, scalars, out))
+            return out
+        return msm
+
+    t0 = time.perf_counter()
+    with mock.patch.object(groth16, "msm_g1",
+                           recorded(bn254.msm_g1, "g1")), \
+            mock.patch.object(groth16, "msm_g2",
+                              recorded(bn254.msm_g2, "g2")):
+        g16_proof = groth16.prove(keys, cs, randomness=WRAP_BN_RANDOMNESS)
+    seconds["prove"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks["verify accepts"] = groth16.verify(keys.vk(), [stmt], g16_proof)
+    seconds["verify"] = time.perf_counter() - t0
+    checks["verify rejects statement ^ 1"] = not groth16.verify(
+        keys.vk(), [stmt ^ 1], g16_proof)
+    g16_bytes = g16_proof.to_bytes()
+    checks["groth16 == JAX digest"] = (
+        hashlib.sha256(g16_bytes).hexdigest() == spec.digests["groth16"])
+    # the C MSMs of the prove against the plain version on their inputs
+    workers = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    msm_sizes = []
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        for group, points, scalars, out in calls:
+            step = -(-len(points) // workers)
+            parts = pool.starmap(_plain_msm, [
+                (group, points[i:i + step], scalars[i:i + step])
+                for i in range(0, len(points), step)])
+            add = bn254.g1_add if group == "g1" else bn254.g2_add
+            plain = None
+            for part in parts:
+                plain = add(plain, part)
+            msm_sizes.append([group, len(points), plain == out])
+    seconds["plain_msms"] = time.perf_counter() - t0
+    checks["every C MSM == plain"] = all(ok for *_, ok in msm_sizes)
+    print(json.dumps({
+        "card": card, "workload": "wrap_bn", "seconds": seconds,
+        "constraints": counts[0], "variables": counts[1],
+        "k1_launches_bn_prove": launches,
+        "bn_proof_sha256": hashlib.sha256(blob).hexdigest(),
+        "r1cs_digests": digests,
+        "groth16_sha256": hashlib.sha256(g16_bytes).hexdigest(),
+        "msms": msm_sizes, "plain_workers": workers,
+        "host_peak_rss_gib":
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+        "checks": checks}))
+    ok = all(checks.values()) and sum(launches.values()) == 0
+    return 0 if ok else 1
+
+
+#: the caps of the wrap_size_fib build: its seconds, and the host memory
+#: it must leave free
+SIZE_CAP_S = 1800.0
+SIZE_HEADROOM_GIB = 10.0
+
+
+def _size_worker(conn, blob: bytes, binding: bytes, msgs: list,
+                 cfg_kw: dict, root: int) -> None:
+    """Build the chain's wrap circuit, sending (seconds, constraints,
+    variables, RSS GiB) every 30 s and ("done", ...) at the end."""
+    import os
+    import threading
+
+    from .snark import stark_wrap
+    from .stark.config import StarkConfig
+    from .stark.machine_bn import MachineProofBN
+    from .stark.recursion import outer_airs
+
+    built = []
+
+    class Tracked(stark_wrap.R1CS):
+        def __init__(self):
+            super().__init__()
+            built.append(self)
+
+    t0 = time.perf_counter()
+
+    def report(tag):
+        cs = built[-1] if built else None
+        conn.send((tag, time.perf_counter() - t0,
+                   len(cs.constraints) if cs else 0,
+                   cs.n_vars if cs else 0, _rss_gib(os.getpid())))
+
+    def every_30_s():
+        while True:
+            time.sleep(30)
+            report("progress")
+
+    stark_wrap.R1CS = Tracked
+    threading.Thread(target=every_30_s, daemon=True).start()
+    stark_wrap.build_stark_wrap_circuit(
+        outer_airs(), MachineProofBN.from_bytes(blob), binding, msgs,
+        StarkConfig(**cfg_kw), {"VmAir": root})
+    report("done")
+
+
+def _rss_gib(pid: int) -> float:
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    return 0.0
+
+
+def _available_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def wrap_size_main(dev, card: str) -> int:
+    """The `wrap_size_fib` workload (module docstring)."""
+    import multiprocessing
+
+    from .stark.config import StarkConfig
+    from .stark.recursion import (
+        _session_messages,
+        outer_airs,
+        recursion_prove_bn,
+    )
+    from .workload import FIB_CHAIN_BINDING, FIB_CHAIN_CONFIG, fib_chain, \
+        shrink_statement
+
+    cfg = StarkConfig(**FIB_CHAIN_CONFIG)
+    t0 = time.perf_counter()
+    _, vk_a, proof_a = fib_chain(dev)
+    a_binding, a_msgs, roots = shrink_statement(vk_a, FIB_CHAIN_BINDING, [])
+    vk_b, proof_b = recursion_prove_bn(
+        outer_airs(), proof_a, a_binding, a_msgs, cfg, cfg,
+        inner_preprocessed_roots=roots, device=dev)
+    chain_s = time.perf_counter() - t0
+    b_msgs = _session_messages(
+        vk_b.shape, a_binding, a_msgs,
+        dict((n, list(r)) for n, r in vk_b.inner_preprocessed_roots))
+    b_binding = a_binding + vk_b.shape.to_bytes()
+    cap_s = SIZE_CAP_S
+    cap_gib = _available_gib() - SIZE_HEADROOM_GIB
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    worker = ctx.Process(target=_size_worker, args=(
+        send, proof_b.to_bytes(), b_binding, b_msgs, FIB_CHAIN_CONFIG,
+        vk_b.program_root))
+    worker.start()
+    t_start = time.perf_counter()
+    send.close()
+    last, outcome, peak = None, None, 0.0
+    try:
+        while outcome is None:
+            if recv.poll(1.0):
+                try:
+                    last = recv.recv()
+                except EOFError:
+                    outcome = f"worker ended (exit code {worker.exitcode})"
+                    break
+                print(json.dumps({"report": last}), flush=True)
+                if last[0] == "done":
+                    outcome = "done"
+                    break
+            if not worker.is_alive():
+                outcome = f"worker ended (exit code {worker.exitcode})"
+                break
+            rss = _rss_gib(worker.pid)
+            peak = max(peak, rss)
+            if rss > cap_gib:
+                outcome = f"stopped at the memory cap ({rss:.1f} GiB)"
+            elif time.perf_counter() - t_start > cap_s:
+                outcome = "stopped at the time cap"
+    finally:
+        if worker.is_alive():
+            worker.kill()
+        worker.join(timeout=60)
+    print(json.dumps({
+        "card": card, "workload": "wrap_size_fib",
+        "chain_on_card_s": chain_s, "shrink_proof_bytes":
+            len(proof_b.to_bytes()),
+        "outcome": outcome, "last_report":
+            dict(zip(("tag", "seconds", "constraints", "variables",
+                      "rss_gib"), last)) if last else None,
+        "worker_peak_rss_gib": peak, "cap_s": cap_s, "cap_gib": cap_gib}))
     return 0
 
 

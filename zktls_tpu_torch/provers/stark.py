@@ -12,6 +12,14 @@ The compress rung (`compress` / `verify_compressed`): the session proof
 verified inside a recursion proof (stark/recursion.py), its outer machine
 proved on the prover's device.
 
+The wrap (`wrap` / `verify_wrapped`): compress, then shrink (the
+BN254/MiMC recursion layer, stark/machine_bn.py) on the prover's device,
+then the STARK-verifier circuit (snark/stark_wrap.py) and Groth16 on the
+host, as in the reference.  The reference's pure-Python R1CS and Groth16
+cannot finish this for any recursion chain (the circuit over even the
+tiny chain's shrink proof outgrows the host's memory), so the chain's
+Groth16 is wired and tested, not run, at full size.
+
 Batches (`prove_batch` / `verify_batch`): several sessions' witnesses
 merged into one chip workload (`merge_guest_outputs`) and proved as ONE
 machine proof bound to the concatenated journals.  The merge is the
@@ -482,6 +490,32 @@ def batch_public_messages(journals: list[bytes]) -> list[tuple]:
     return msgs
 
 
+def _vk_jsonable(vk: dict) -> dict:
+    """Groth16 vk dict → cbor-safe (32-byte big-endian coordinates)."""
+    def e1(p):
+        return [int(p[0]).to_bytes(32, "big"),
+                int(p[1]).to_bytes(32, "big")]
+
+    def e2(p):
+        return [e1(p[0]), e1(p[1])]
+
+    return {"alpha1": e1(vk["alpha1"]), "beta2": e2(vk["beta2"]),
+            "gamma2": e2(vk["gamma2"]), "delta2": e2(vk["delta2"]),
+            "ic": [e1(p) for p in vk["ic"]]}
+
+
+def _vk_unjsonable(obj: dict) -> dict:
+    def d1(p):
+        return (int.from_bytes(p[0], "big"), int.from_bytes(p[1], "big"))
+
+    def d2(p):
+        return (d1(p[0]), d1(p[1]))
+
+    return {"alpha1": d1(obj["alpha1"]), "beta2": d2(obj["beta2"]),
+            "gamma2": d2(obj["gamma2"]), "delta2": d2(obj["delta2"]),
+            "ic": [d1(p) for p in obj["ic"]]}
+
+
 class StarkGuestProver:
     """ZkProver proving the guest witness as one machine STARK proof.
 
@@ -587,6 +621,114 @@ class StarkGuestProver:
             public_messages=msgs,
             inner_config=self.config,
             outer_config=outer_config or self.config)
+
+    # -- the full wrap chain: compress → shrink → Groth16 ----------------
+
+    def wrap(self, journal: bytes, proof: bytes,
+             groth16_keys=None,
+             shrink_config: StarkConfig | None = None,
+             timings: dict | None = None,
+             spill_bytes: float = SPILL_BYTES,
+             chunked_deep_bytes: float = CHUNKED_DEEP_BYTES) -> bytes:
+        """machine proof → compress (Poseidon2 recursion) → shrink
+        (BN254/MiMC recursion) → Groth16 — the reference's
+        core→compress→shrink→wrap pipeline.  The returned blob carries
+        {vk_a, vk_b, groth16 proof, g16 vk}; the Groth16 circuit IS the
+        shrink-layer verifier, so the seal exists only if a valid machine
+        STARK stands behind the journal.  Compress and shrink run on the
+        prover's device, the circuit and Groth16 on the host.
+
+        groth16_keys: a Groth16Keys CRS for this statement shape (from a
+        previous run); when None, setup runs inline.  timings: the
+        reference's keys (compress_s, shrink_s, wrap_circuit_s,
+        wrap_constraints, groth16_s — the last counted from the circuit's
+        start, as the reference counts it) besides the recursion stages;
+        spill_bytes, chunked_deep_bytes: the compress's, as `compress`."""
+        from ..core import cbor
+        from ..snark.groth16 import prove as g16_prove, setup as g16_setup
+        from ..snark.stark_wrap import build_stark_wrap_circuit
+        from ..stark.recursion import (
+            _session_messages,
+            outer_airs,
+            recursion_prove,
+            recursion_prove_bn,
+        )
+
+        mp = MachineProof.from_bytes(proof)
+        airs = journal_airs(journal, mp)
+        msgs = journal_public_messages(journal)
+        t0 = time.perf_counter()
+        vk_a, proof_a = recursion_prove(
+            airs, mp, journal, public_messages=msgs,
+            inner_config=self.config, timings=timings, device=self.device,
+            spill_bytes=spill_bytes, chunked_deep_bytes=chunked_deep_bytes)
+        if timings is not None:
+            timings["compress_s"] = round(time.perf_counter() - t0, 2)
+        a_binding = journal + vk_a.shape.to_bytes()
+        a_msgs = _session_messages(vk_a.shape, journal, msgs)
+        scfg = shrink_config or self.config
+        t0 = time.perf_counter()
+        vk_b, proof_b = recursion_prove_bn(
+            outer_airs(), proof_a, a_binding, public_messages=a_msgs,
+            inner_config=self.config, outer_config=scfg,
+            inner_preprocessed_roots={
+                "VmAir": list(vk_a.program_root)},
+            timings=timings, device=self.device)
+        if timings is not None:
+            timings["shrink_s"] = round(time.perf_counter() - t0, 2)
+        b_msgs = _session_messages(
+            vk_b.shape, a_binding, a_msgs,
+            dict((n, list(r)) for n, r in vk_b.inner_preprocessed_roots))
+        b_binding = a_binding + vk_b.shape.to_bytes()
+        t0 = time.perf_counter()
+        cs = build_stark_wrap_circuit(
+            outer_airs(), proof_b, b_binding, b_msgs, scfg,
+            {"VmAir": vk_b.program_root})
+        if timings is not None:
+            timings["wrap_circuit_s"] = round(time.perf_counter() - t0, 2)
+            timings["wrap_constraints"] = len(cs.constraints)
+        if groth16_keys is None:
+            groth16_keys = g16_setup(cs, seed=b"zktls-stark-wrap-v1")
+        g16 = g16_prove(groth16_keys, cs)
+        if timings is not None:
+            timings["groth16_s"] = round(time.perf_counter() - t0, 2)
+        return cbor.dumps({
+            "vk_a": vk_a.to_bytes(), "vk_b": vk_b.to_bytes(),
+            "g16": g16.to_bytes(),
+            "g16_vk": cbor.dumps(_vk_jsonable(groth16_keys.vk())),
+        })
+
+    def verify_wrapped(self, journal: bytes, blob: bytes) -> bool:
+        """Verify the Groth16 seal: recompute the statement digest from
+        (journal, chain vks) and run the pairing check.  The Groth16 vk
+        identifies the circuit — and the circuit embeds the shrink-layer
+        program root, which transitively pins the compress program and
+        the zkTLS machine behind it.  The caller must trust the Groth16
+        vk for this statement shape (the standard SNARK trust model)."""
+        from ..core import cbor
+        from ..snark.groth16 import Groth16Proof, verify as g16_verify
+        from ..snark.stark_wrap import statement_digest_fr
+        from ..stark.recursion import (
+            RecursionVK,
+            RecursionVKBN,
+            _session_messages,
+        )
+
+        obj = cbor.loads(blob)
+        vk_a = RecursionVK.from_bytes(obj["vk_a"])
+        vk_b = RecursionVKBN.from_bytes(obj["vk_b"])
+        msgs = journal_public_messages(journal)
+        a_binding = journal + vk_a.shape.to_bytes()
+        a_msgs = _session_messages(vk_a.shape, journal, msgs)
+        b_msgs = _session_messages(
+            vk_b.shape, a_binding, a_msgs,
+            dict((n, list(r)) for n, r in vk_b.inner_preprocessed_roots))
+        b_binding = a_binding + vk_b.shape.to_bytes()
+        stmt = statement_digest_fr(b_binding, b_msgs,
+                                   {"VmAir": vk_b.program_root})
+        g16_vk = _vk_unjsonable(cbor.loads(obj["g16_vk"]))
+        return g16_verify(g16_vk, [stmt],
+                          Groth16Proof.from_bytes(obj["g16"]))
 
     # -- multi-session batching ------------------------------------------
 

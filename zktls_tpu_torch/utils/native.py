@@ -1,23 +1,27 @@
-"""Host hashes in C, bound with ctypes: Poseidon2 over Baby-Bear
-(csrc/poseidon2_host.c) and MP-MiMC over the BN254 scalar field
-(csrc/mimc_bn254_host.c).
+"""Host code in C, bound with ctypes: Poseidon2 over Baby-Bear
+(csrc/poseidon2_host.c), MP-MiMC over the BN254 scalar field
+(csrc/mimc_bn254_host.c) and the BN254 multi-scalar multiplication of
+Groth16 (csrc/bn254_msm_host.c).
 
 Port of zktls_tpu.utils.native: its Poseidon2 part (`permute_batch`,
-`hash_rows`, `compress_pairs`) and its MiMC part (`mimc_hash_rows`,
+`hash_rows`, `compress_pairs`), its MiMC part (`mimc_hash_rows`,
 `mimc_compress_pairs`, the round constants injected from
-`snark.wrap.MIMC_ROUND_CONSTANTS`); its BN254 MSM part is not ported.
-Poseidon2 instances: 0 = width 16 (node compression, challenger), 1 =
-width 24 (rate-16 Merkle leaf sponge); values are plain-form field
-elements (< P).  MiMC values are plain BN254 scalars as little-endian u64
-limbs (4 per element).
+`snark.wrap.MIMC_ROUND_CONSTANTS`) and its MSM part (`bn254_msm_g1`,
+`bn254_g1_mul_batch`, `bn254_msm_g2`, `bn254_g2_mul_batch`, the same
+array layouts).  Poseidon2 instances: 0 = width 16 (node compression,
+challenger), 1 = width 24 (rate-16 Merkle leaf sponge); values are
+plain-form field elements (< P).  MiMC values are plain BN254 scalars as
+little-endian u64 limbs (4 per element); so are the MSM's coordinates
+(base field) and scalars.
 
 Each library is built at first use with the system C compiler (`cc`, else
 `gcc`) into build/native/, keyed by the hash of its source and flags:
-Poseidon2 with `-O3 -shared -fPIC`, MiMC with `-fopenmp` as well, since
-a full-width shrink hashes ~3e8 MiMC permutations.  Unlike the reference,
+Poseidon2 with `-O3 -shared -fPIC`, MiMC and the MSM with `-fopenmp` as
+well, since a full-width shrink hashes ~3e8 MiMC permutations and a
+Groth16 setup multiplies ~10^5 fixed-base points.  Unlike the reference,
 a missing compiler, a compiler without OpenMP, or a failed build or load
 raises with the compiler's message: nothing falls back to the pure-Python
-hashes, or to a single-threaded MiMC, quietly.
+hashes or MSM, or to a single-threaded MiMC, quietly.
 """
 
 from __future__ import annotations
@@ -36,19 +40,24 @@ from ..ops.field_ref import P
 __all__ = ["SOURCE", "build", "library", "permute_batch", "permute_ints",
            "hash_rows", "compress_pairs", "MIMC_SOURCE", "build_mimc",
            "mimc_library", "mimc_hash_rows", "mimc_compress_pairs",
-           "set_mimc_threads", "mimc_threads"]
+           "set_mimc_threads", "mimc_threads", "MSM_SOURCE", "build_msm",
+           "msm_library", "bn254_msm_g1", "bn254_g1_mul_batch",
+           "bn254_msm_g2", "bn254_g2_mul_batch"]
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "poseidon2_host.c"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CFLAGS = ["-O3", "-shared", "-fPIC"]
 MIMC_SOURCE = SOURCE.parent / "mimc_bn254_host.c"
 MIMC_CFLAGS = [*CFLAGS, "-fopenmp"]
+MSM_SOURCE = SOURCE.parent / "bn254_msm_host.c"
+MSM_CFLAGS = MIMC_CFLAGS
 
 _WIDTH_TO_INST = {16: 0, 24: 1}
 _U32P = ctypes.POINTER(ctypes.c_uint32)
 _U64P = ctypes.POINTER(ctypes.c_uint64)
 _lib = None
 _mimc_lib = None
+_msm_lib = None
 
 
 def _compiler() -> str:
@@ -264,3 +273,82 @@ def _set_mimc_vector(on: bool) -> bool:
     so that both paths can be held to the same digests; returns whether
     the vector path is now taken.  Process-wide."""
     return bool(mimc_library().mimc_set_vector(int(bool(on))))
+
+
+# ---------------------------------------------------------------------------
+# BN254 multi-scalar multiplication (the Groth16 prover's hot loop)
+# ---------------------------------------------------------------------------
+
+
+def build_msm(source: Path = MSM_SOURCE, build_dir: Path = BUILD_DIR
+              ) -> tuple[Path, str]:
+    """Build the host MSM library with OpenMP (see `_build`)."""
+    return _build(source, build_dir, MSM_CFLAGS)
+
+
+def _bind_msm(path: Path):
+    """Load the built MSM library and declare its C interface."""
+    lib = ctypes.CDLL(str(path))
+    for name in ("bn254_msm_g1", "bn254_g1_mul_batch", "bn254_msm_g2",
+                 "bn254_g2_mul_batch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_U64P, _U64P, ctypes.c_size_t, _U64P]
+        fn.restype = None
+    return lib
+
+
+def msm_library():
+    """The loaded MSM library, built on first use (raises on any
+    failure)."""
+    global _msm_lib
+    if _msm_lib is None:
+        _msm_lib = _bind_msm(build_msm()[0])
+    return _msm_lib
+
+
+def _msm_call(name: str, first: np.ndarray, scalars: np.ndarray,
+              out_shape: tuple) -> np.ndarray:
+    """Run one MSM entry point on validated u64 limb arrays: `first` (the
+    points, or the base point of a batch) and `scalars`, (n, 4)."""
+    out = np.zeros(out_shape, dtype=np.uint64)
+    getattr(msm_library(), name)(first.ctypes.data_as(_U64P),
+                                 scalars.ctypes.data_as(_U64P),
+                                 scalars.shape[0], out.ctypes.data_as(_U64P))
+    return out
+
+
+def _points_and_scalars(points, scalars, width: int):
+    points, scalars = _u64(points, 2, width), _u64(scalars, 2, 4)
+    if points.shape[0] != scalars.shape[0]:
+        raise ValueError(f"{points.shape[0]} points, {scalars.shape[0]} "
+                         "scalars")
+    return points, scalars
+
+
+def bn254_msm_g1(points: np.ndarray, scalars: np.ndarray) -> np.ndarray:
+    """points (n, 8) plain u64 limbs (x‖y; x = y = 0 is infinity),
+    scalars (n, 4) → (3, 4) Jacobian (X, Y, Z) plain limbs; Z = 0 means
+    infinity."""
+    points, scalars = _points_and_scalars(points, scalars, 8)
+    return _msm_call("bn254_msm_g1", points, scalars, (3, 4))
+
+
+def bn254_g1_mul_batch(base: np.ndarray, scalars: np.ndarray) -> np.ndarray:
+    """base (8,), scalars (n, 4) → (n, 3, 4) Jacobian points, k·base."""
+    scalars = _u64(scalars, 2, 4)
+    return _msm_call("bn254_g1_mul_batch", _u64(base, 1, 8), scalars,
+                     (scalars.shape[0], 3, 4))
+
+
+def bn254_msm_g2(points: np.ndarray, scalars: np.ndarray) -> np.ndarray:
+    """points (n, 16) (x.re‖x.im‖y.re‖y.im limbs), scalars (n, 4) →
+    (6, 4) Jacobian over Fp2 (X.re X.im Y.re Y.im Z.re Z.im)."""
+    points, scalars = _points_and_scalars(points, scalars, 16)
+    return _msm_call("bn254_msm_g2", points, scalars, (6, 4))
+
+
+def bn254_g2_mul_batch(base: np.ndarray, scalars: np.ndarray) -> np.ndarray:
+    """base (16,), scalars (n, 4) → (n, 6, 4) Jacobian-Fp2 points."""
+    scalars = _u64(scalars, 2, 4)
+    return _msm_call("bn254_g2_mul_batch", _u64(base, 1, 16), scalars,
+                     (scalars.shape[0], 6, 4))

@@ -27,6 +27,12 @@
   `StarkGuestProver.wrap` does; `fib_chain()`: the tiny chain of
   tests/test_shrink_bn.py (Fibonacci → compress), whose shrink bytes the
   card and the CPU are held to.
+* `SNARKS`: the Groth16 paths the reference's host code can finish — the
+  STARK-verifier wrap of a small BN machine proof (`wrap_bn`,
+  `wrap_bn_machine`) and the journal seal of each committed TLS 1.3 /
+  TLS 1.2 session (`journal_1303`, `journal_c02f`) — with their circuits'
+  sizes and the JAX package's digests; `r1cs_digests` hashes a circuit;
+  `EXPORT_SHA256` holds the JAX package's exported EVM verifier files.
 
 Each session is a loopback recording (scripts/record_session_c02f_p256.py
 --suite ...) with a 512-byte JSON body of which 10 bytes are filtered,
@@ -38,6 +44,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
+
+import hashlib
 
 import numpy as np
 
@@ -58,7 +66,11 @@ __all__ = ["sha_machine", "Session", "SESSIONS", "SESSION_GUEST_INPUT",
            "FIB_COMPRESS_REFERENCE", "SHA_MACHINE_SEED", "SHA_MACHINE_CONFIG",
            "SHA_MACHINE_BINDING", "SHA_MACHINE_REFERENCE",
            "SHA_QUOTIENT_REFERENCE", "sha_quotient_inputs", "BN_MACHINE_LOG_N",
-           "BN_MACHINE_CONFIG", "BN_MACHINE_BINDING", "BN_MACHINE_REFERENCE"]
+           "BN_MACHINE_CONFIG", "BN_MACHINE_BINDING", "BN_MACHINE_REFERENCE",
+           "FIB_CHAIN_VKS_REFERENCE", "Snark", "SNARKS", "WRAP_BN_CONFIG",
+           "WRAP_BN_BINDING", "WRAP_BN_SEED", "WRAP_BN_RANDOMNESS",
+           "WRAP_BN_REFERENCE", "wrap_bn_machine", "r1cs_digests",
+           "EXPORT_SHA256"]
 
 DATA = Path(__file__).resolve().parent / "data"
 
@@ -245,6 +257,9 @@ def shrink_statement(vk_a, binding: bytes,
 FIB_CHAIN_CONFIG = dict(log_blowup=2, num_queries=2, pow_bits=0,
                         fri_final_size=16)
 FIB_CHAIN_BINDING = b"fib-chain"
+#: the JAX package's compress and shrink vks of that chain, cbor
+#: {"vk_a", "vk_b"} (scripts/session_proof_cpu.py --shrink fib)
+FIB_CHAIN_VKS_REFERENCE = DATA / "fib_chain_vks.jax.cbor"
 #: the Fibonacci inner of tests/test_torch_recursion.py, and the JAX
 #: package's compress of it (its vk and outer proof bytes, made by
 #: scripts/session_proof_cpu.py --compress fib --reference)
@@ -387,3 +402,103 @@ def preprocessed_machine(log_n: int, seed: int = 7
     return [ChipInstance(air=FixedMulAir(), trace=trace, publics=[],
                          preprocessed=pre),
             ChipInstance(air=FibonacciAir(), trace=fib, publics=fib_pub)], pre
+
+
+@dataclass(frozen=True)
+class Snark:
+    """A Groth16 path: what its circuit proves, the circuit's size and the
+    JAX package's digests of what the path gives."""
+
+    #: the statement behind the circuit's one public input
+    statement: str
+    #: the StarkConfig of the inner BN machine proof (None: no inner proof)
+    config: dict | None
+    constraints: int
+    variables: int
+    #: SHA-256 digests, hex: "proof" the inner BN proof's bytes,
+    #: "assignment" and "constraints" `r1cs_digests` of the circuit,
+    #: "groth16" the Groth16 proof's bytes at WRAP_BN_SEED and
+    #: WRAP_BN_RANDOMNESS
+    digests: dict
+
+
+#: the STARK-verifier wrap of tests/test_stark_wrap.py:24-88: the
+#: Fibonacci(5) machine with BN254/MiMC commitments at this config and
+#: binding, its Groth16 CRS seed and proof randomness, and the JAX
+#: package's proof bytes (scripts/session_proof_cpu.py --snark bn
+#: --reference)
+WRAP_BN_CONFIG = dict(log_blowup=2, num_queries=2, pow_bits=2,
+                      fri_final_size=16)
+WRAP_BN_BINDING = b"fib-wrap"
+WRAP_BN_SEED = b"wrap-test"
+WRAP_BN_RANDOMNESS = b"zktls-tpu-torch wrap_bn"
+WRAP_BN_REFERENCE = DATA / "fib_wrap_bn.jax.proof"
+
+#: the journal circuit's constraints, the same for every journal
+JOURNAL_CONSTRAINTS_SHA256 = (
+    "2b6bc7c3afab8c50852fa35bd196e6b5976cefbf8647ed1ae1a7455a836dfd9b")
+#: the Groth16 paths by name; the journal circuit is one size for every
+#: journal (MAX_CHUNKS), so both journal paths share it and one CRS
+#: (`wrap_setup()`)
+SNARKS = {
+    "wrap_bn": Snark(
+        "statement_digest_fr(b'fib-wrap', [], {}) of the Fibonacci(5) "
+        "BN machine proof", WRAP_BN_CONFIG, 150312, 147714, {
+            "proof": "e8ec5961b5057f5a35913c915548bc9a"
+                     "2ea154979306f7a5b578a4f67ab9c898",
+            "assignment": "cbb0f37278c041a4ae7df82c0ffdaf6d"
+                          "105ace18d7ab580166d88e3205381dc8",
+            "constraints": "df5cbad643938e5895eed1190127021207"
+                           "a056c9936bea14375c76635c09904d",
+            "groth16": "8f37a6332b5372c0bab0100356ad9026"
+                       "22128dcd44d86d99c59954c4e7716a4a"}),
+    "journal_1303": Snark(
+        "journal_digest_fr of the 0x1303 session's 1,248-byte journal",
+        None, 15889, 15938, {
+            "assignment": "48e657259ea60d55b7e2a3fdbca1fa8b"
+                          "7f38d2130906135369a3ee2fd195c9e7",
+            "constraints": JOURNAL_CONSTRAINTS_SHA256}),
+    "journal_c02f": Snark(
+        "journal_digest_fr of the c02f session's 1,056-byte journal",
+        None, 15889, 15938, {
+            "assignment": "d2dead1513226862458979b470479e83"
+                          "87da45ca5dc9fb508086e8fb9b4754da",
+            "constraints": JOURNAL_CONSTRAINTS_SHA256}),
+}
+#: SHA-256 of the JAX package's export_verifier("evm") files (the bundled
+#: wrap_vk.json), scripts/session_proof_cpu.py --snark journal --reference
+EXPORT_SHA256 = {
+    "ZkTlsVerifier.sol":
+    "82d6e400abac4088301d204844c7ac94753a44572fe94cfb016f8579369431e7",
+    "Groth16Verifier.sol":
+    "c4ec28a7c2f8eef31f9f98e00c1e79ea0c413cc3c6c8e6c6d941f143d1fdf848",
+    "vk.json":
+    "68df3b450262c546d9bf4969bdbd8a700f2ac559352a60c13911d2acf8043167",
+}
+
+
+def wrap_bn_machine() -> tuple[list[ChipInstance], bytes, dict]:
+    """(the Fibonacci(5) chip, WRAP_BN_BINDING, WRAP_BN_CONFIG) of the
+    `wrap_bn` path."""
+    trace, pub = fibonacci_trace(5)
+    return ([ChipInstance(air=FibonacciAir(), trace=trace, publics=pub)],
+            WRAP_BN_BINDING, WRAP_BN_CONFIG)
+
+
+def r1cs_digests(cs) -> dict:
+    """{"assignment", "constraints"}: SHA-256 of the assignment (each
+    value 32 bytes big-endian, in variable order) and of the constraints
+    (per constraint the A, B and C combinations, each its term count and
+    its (variable, coefficient) terms in the order the builder wrote
+    them, as 4 + 32 bytes).  Works on either package's R1CS."""
+    h = hashlib.sha256()
+    for v in cs.assignment():
+        h.update(int(v).to_bytes(32, "big"))
+    c = hashlib.sha256()
+    for lcs in cs.constraints:
+        for lc in lcs:
+            c.update(len(lc).to_bytes(4, "big"))
+            for k, v in lc.items():
+                c.update(int(k).to_bytes(4, "big")
+                         + int(v).to_bytes(32, "big"))
+    return {"assignment": h.hexdigest(), "constraints": c.hexdigest()}
