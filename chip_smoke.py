@@ -147,17 +147,45 @@ without printing a result:
         writes the three files, whose SHA-256 must equal the JAX
         package's.  The setup and prove seconds and the seal's bytes are
         printed; the 0x1303 session prove's K1 launches are this path's;
- 13. one JSON line describing each kernel (launches: the compress's;
-     permute: the grinding path's, its one caller; every path's launches
-     under "launches_by_path");
- 14. last line: {"ok": true, "device": {...}}.
+ 13. the prover service and the live recorder: record a 0x1303 (TLS 1.3
+     CHACHA20-POLY1305) and a c02f (TLS 1.2 over P-256) session on the
+     loopback with the port's TLSInputBuilder against a Python `ssl`
+     server holding the committed test certificate
+     (workload.record_loopback), replay each with run_guest and require
+     its suite and journal length; start the CLI's `serve` service,
+     serve("stark", "127.0.0.1", 0) (StarkGuestProver on the card, built
+     at the first prove), and, through RemoteGuestProver: health
+     ("StarkGuestProver"); the committed 0x1303 session proved remotely
+     (its journal == the local replay's, its proof's SHA-256 ==
+     SESSION_PROOF_SHA256["1303"]; then a local prove of it, for its time
+     and bytes);
+     the live 0x1303 recording proved remotely with its leaf joined to the
+     store, accepted by StarkGuestProver().verify and rejected against a
+     changed filtered byte; a truncated GuestInput body answered 400.  K1
+     launches counted over each remote prove must be non-zero (the
+     service proves in-process on the card);
+ 14. the prover's remaining device paths: the four-step NTT (which `ntt`
+     takes from 2^23 rows) against radix-2 on (2^23, 8) and (2^25, 8)
+     seeded matrices (equal, `ntt` == the four-step, intt inverts; times
+     and peaks); the single-AIR
+     prove of the Fibonacci AIR at 2^16 rows and of the byte-range LogUp
+     table at 2^15 (workload.single_air; the reference's single-AIR
+     prove cannot take a bus chip such as Sha256Air): card == CPU bytes,
+     verify accepts, a changed opening is rejected, and at the small
+     sizes the card's bytes equal the committed JAX proofs
+     (workload.SINGLES).  The Fibonacci card prove's K1 launches are
+     this path's;
+ 15. one JSON line describing each kernel (launches: the compress's;
+     permute: the grinding path's; every path's launches under
+     "launches_by_path");
+ 16. last line: {"ok": true, "device": {...}}.
 
 `--only` runs phases 1-3 and the named paths of sha, sessions,
-preprocessed, c02f_x2, c02f_x8, compress, shrink, snark (a check while
-working on one of them; it prints neither the kernels line nor the
-result; shrink runs compress first unless it was named, snark the
-sessions it seals).  Needs one card, nvcc (/usr/local/cuda), a C compiler
-with OpenMP and no network.
+preprocessed, c02f_x2, c02f_x8, compress, shrink, snark, service, paths
+(a check while working on one of them; it prints neither the kernels
+line nor the result; shrink runs compress first unless it was named,
+snark the sessions it seals).  Needs one card, nvcc (/usr/local/cuda), a
+C compiler with OpenMP and no network.
 """
 
 from __future__ import annotations
@@ -204,7 +232,7 @@ BATCH_PROOF_SHA256 = {
 PARSER_FAULT = "StreamParserAir: constraint identity failed at zeta"
 #: the optional paths, in the order they run
 PATHS = ("sha", "sessions", "preprocessed", "c02f_x2", "c02f_x8",
-         "compress", "shrink", "snark")
+         "compress", "shrink", "snark", "service", "paths")
 #: rows per block of a plain hash_rows held against the kernel
 PLAIN_ROWS = 1 << 21
 #: SHA-256 of the port's DEFAULT_CONFIG compress of the 256-row Sha256Air
@@ -331,6 +359,11 @@ def main() -> int:
         export_verifier,
         simulate_zktls_verify,
     )
+    from zktls_tpu_torch.ops import ntt as ntt_mod
+    from zktls_tpu_torch.provers.service import RemoteGuestProver, serve
+    from zktls_tpu_torch.stark.proof import StarkProof
+    from zktls_tpu_torch.stark.prover import prove as prove_single
+    from zktls_tpu_torch.stark.verifier import verify as verify_single
     from zktls_tpu_torch.workload import (
         BATCHES,
         COMPRESSES,
@@ -339,14 +372,17 @@ def main() -> int:
         FIB_CHAIN_CONFIG,
         SESSIONS,
         SHRINKS,
+        SINGLES,
         SNARKS,
         FixedMulAir,
         fib_chain,
         preprocessed_machine,
         r1cs_digests,
+        record_loopback,
         sha_compress_machine,
         sha_machine,
         shrink_statement,
+        single_air,
         wrap_bn_machine,
     )
 
@@ -1253,6 +1289,192 @@ def main() -> int:
               f"{launches}; total {time.perf_counter() - t_start:.1f} s")
         return launches_by_path["1303"]
 
+    def service_path() -> dict:
+        """Phase 13: live recordings with the port's recorder, then the
+        prover service on the card through RemoteGuestProver; returns the
+        K1 launches of the remote proves."""
+        from urllib.error import HTTPError
+        from urllib.request import Request as UrlRequest, urlopen
+
+        tag = "service:"
+        live = {}
+        for suite, ref in ((0x1303, "1303"), (0xC02F, "c02f")):
+            t0 = time.perf_counter()
+            gi = record_loopback(suite)
+            rec_s = time.perf_counter() - t0
+            out = run_guest(gi, require_trust_anchor=False)
+            _require(out.replay.cipher_suite.id == suite,
+                     f"{tag} the recording negotiated "
+                     f"0x{out.replay.cipher_suite.id:04X}")
+            _require(len(out.journal) == SESSIONS[ref].journal_bytes,
+                     f"{tag} the 0x{suite:04X} journal is "
+                     f"{len(out.journal)} bytes")
+            live[suite] = (gi, out)
+            print(f"{tag} recorded 0x{suite:04X} live on the loopback "
+                  f"(TLSInputBuilder, committed test certificate) in "
+                  f"{rec_s:.2f} s: tape {len(gi.response.stream)} bytes, "
+                  f"random {len(gi.response.random)} bytes; run_guest "
+                  f"journal {len(out.journal)} bytes")
+        committed = GuestInput.from_cbor(
+            SESSIONS["1303"].guest_input.read_bytes())
+        live_gi, live_out = live[0x1303]
+        store = roots.anchor_spki_hashes() | {
+            bytes.fromhex(SESSIONS["1303"].chain["root_spki_sha256"]),
+            bytes.fromhex(live_out.chain["root_spki_sha256"])}
+        svc = serve("stark", "127.0.0.1", 0).start()
+        try:
+            remote = RemoteGuestProver(svc.url)
+            health = remote.health()
+            _require(health == {"status": "ok",
+                                "prover": "StarkGuestProver"},
+                     f"{tag} health {health}")
+            with mock.patch.object(roots, "anchor_spki_hashes",
+                                   lambda: store):
+                want = run_guest(committed).journal
+                k1.reset_launches()
+                p2.plain_calls = 0
+                t0 = time.perf_counter()
+                journal, blob = remote.prove(committed)
+                remote_s = time.perf_counter() - t0
+                launches = dict(k1.launches)
+                _require(journal == want, f"{tag} the remote journal is "
+                         "not the local replay's")
+                digest = hashlib.sha256(blob).hexdigest()
+                _require(digest == SESSION_PROOF_SHA256["1303"],
+                         f"{tag} the remote proof is not the session's")
+                t0 = time.perf_counter()
+                _require(StarkGuestProver().prove(committed)[1] == blob,
+                         f"{tag} the local prove gave other bytes")
+                local_s = time.perf_counter() - t0
+                k1.reset_launches()
+                t0 = time.perf_counter()
+                live_journal, live_blob = remote.prove(live_gi)
+                live_s = time.perf_counter() - t0
+                live_launches = dict(k1.launches)
+                _require(live_journal == live_out.journal,
+                         f"{tag} the live session's remote journal differs")
+                _require(StarkGuestProver().verify(live_journal, live_blob),
+                         f"{tag} the live session's proof was rejected")
+                bad, pos = _tamper_filtered(live_journal)
+                try:
+                    StarkGuestProver().verify(bad, live_blob)
+                except VerificationError as e:
+                    rejected = str(e)
+                else:
+                    raise RuntimeError(f"{tag} the live proof verified "
+                                       "against a tampered journal")
+            body = committed.to_cbor()
+            try:
+                urlopen(UrlRequest(f"{svc.url}/v1/prove",
+                                   data=body[: len(body) // 2],
+                                   method="POST"), timeout=60)
+            except HTTPError as e:
+                status = e.code
+            else:
+                status = 200
+            _require(status == 400, f"{tag} a truncated body got {status}")
+        finally:
+            svc.stop()
+        for name, got in (("committed", launches), ("live", live_launches)):
+            for entry in ("hash_rows", "merkle_levels"):
+                _require(got[entry] > 0, f"{tag} the {name} remote prove "
+                         f"launched {entry} no time")
+        _require(p2.plain_calls == 0, f"{tag} a prove ran the plain Poseidon2")
+        print(f"{tag} serve(\"stark\") at {svc.url}: health "
+              f"{health}; remote prove of the committed 0x1303 session "
+              f"{remote_s:.2f} s (local {local_s:.2f} s), journal == the "
+              f"local replay's, proof sha256 {digest} == the session's; K1 "
+              f"launches {launches}")
+        print(f"{tag} remote prove of the live 0x1303 recording "
+              f"{live_s:.2f} s, {len(live_blob)} bytes, K1 launches "
+              f"{live_launches}; StarkGuestProver.verify accepts; filtered "
+              f"byte {pos} changed rejected ({rejected}); a truncated "
+              f"GuestInput body got {status}; total "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return launches
+
+    def paths_path() -> dict:
+        """Phase 14: the four-step NTT against radix-2, and the single-AIR
+        prove/verify; returns the K1 launches of the Fibonacci prove."""
+        tag = "paths:"
+        for log_n in (23, 25):
+            x = rand_field(1 << log_n, 8)
+            got = {}
+            for label, fn in (("radix-2", ntt_mod._ntt_radix2),
+                              ("four-step", ntt_mod._ntt_four_step)):
+                args = (x, False) if fn is ntt_mod._ntt_radix2 else (
+                    x, log_n, False)
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                base_mem = torch.cuda.memory_allocated(dev)
+                y = fn(*args)
+                torch.cuda.synchronize(dev)
+                peak = (torch.cuda.max_memory_allocated(dev) - base_mem) / 2**30
+                ms = _time_ms(lambda: fn(*args), reps=1, runs=3)
+                got[label] = (y, ms, peak)
+                del y
+            _require(torch.equal(got["radix-2"][0], got["four-step"][0]),
+                     f"{tag} four-step != radix-2 at 2^{log_n}")
+            _require(torch.equal(ntt_mod.ntt(x), got["four-step"][0]),
+                     f"{tag} ntt at 2^{log_n} is not the four-step's")
+            _require(torch.equal(ntt_mod.intt(got["four-step"][0]), x),
+                     f"{tag} intt did not invert at 2^{log_n}")
+            print(f"{tag} ntt (2^{log_n}, 8): four-step (ntt's path from "
+                  f"2^{ntt_mod._FOUR_STEP_LOG}) == radix-2, intt inverts; "
+                  f"radix-2 {got['radix-2'][1]:.2f} ms, "
+                  f"{got['radix-2'][2]:.2f} GiB above the input; four-step "
+                  f"{got['four-step'][1]:.2f} ms, "
+                  f"{got['four-step'][2]:.2f} GiB")
+            del got, x
+
+        launches = None
+        for name, log_n in (("fib", 16), ("bytes", 15)):
+            cfg = StarkConfig(**SINGLES[name][0])
+            air, trace, publics = single_air(name, log_n)
+            k1.reset_launches()
+            p2.plain_calls = 0
+            t0 = time.perf_counter()
+            card = prove_single(air, trace, publics, cfg, device=dev)
+            card_s = time.perf_counter() - t0
+            got = dict(k1.launches)
+            _require(p2.plain_calls == 0,
+                     f"{tag} the {name} prove ran the plain Poseidon2")
+            launches = launches or got
+            blob = card.to_bytes()
+            t0 = time.perf_counter()
+            _require(prove_single(air, trace, publics, cfg,
+                                  device="cpu").to_bytes() == blob,
+                     f"{tag} {name} single-AIR proof: card != CPU")
+            cpu_s = time.perf_counter() - t0
+            _require(verify_single(air, StarkProof.from_bytes(blob), cfg),
+                     f"{tag} verify rejected the {name} proof")
+            bad = StarkProof.from_bytes(blob)
+            bad.queries[0].trace_row[0] = (bad.queries[0].trace_row[0] + 1) \
+                % bb.P
+            try:
+                verify_single(air, bad, cfg)
+            except VerificationError as e:
+                rejected = str(e)
+            else:
+                raise RuntimeError(f"{tag} a tampered {name} opening "
+                                   "verified")
+            ref_air, ref_trace, ref_publics = single_air(name)
+            _require(prove_single(ref_air, ref_trace, ref_publics, cfg,
+                                  device=dev).to_bytes()
+                     == SINGLES[name][1].read_bytes(),
+                     f"{tag} the small {name} proof is not the JAX bytes")
+            print(f"{tag} single-AIR {air.name} {trace.shape[0]}x"
+                  f"{trace.shape[1]} ({SINGLES[name][0]}) card prove "
+                  f"{card_s:.2f} s == the CPU's bytes ({cpu_s:.2f} s), "
+                  f"{len(blob)} bytes, K1 launches {got}; verify accepts, a "
+                  f"changed opening rejected ({rejected}); at "
+                  f"{ref_trace.shape[0]} rows == the committed JAX bytes")
+        for entry in ("hash_rows", "merkle_levels"):
+            _require(launches[entry] > 0, f"{tag} the Fibonacci prove "
+                     f"launched {entry} no time")
+        print(f"{tag} total {time.perf_counter() - t_start:.1f} s")
+        return launches
+
     launches_by_path = {}
     if "sha" in paths:
         launches_by_path.update(sha_path())
@@ -1278,6 +1500,12 @@ def main() -> int:
     # 12. the Groth16 layer
     if "snark" in paths:
         launches_by_path["snark"] = snark_path(covered)
+    # 13. the prover service and the live recorder
+    if "service" in paths:
+        launches_by_path["service"] = service_path()
+    # 14. the prover's alternative device paths
+    if "paths" in paths:
+        launches_by_path["paths"] = paths_path()
     if args.only is not None:
         print(f"--only {','.join(paths)}: done in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -1286,8 +1514,7 @@ def main() -> int:
                 **{k: launches_by_path["compress"][k]
                    for k in ("hash_rows", "merkle_levels")}}
 
-    # 13. kernels (launches: the compress's; permute: the grinding path's,
-    # its one caller)
+    # 15. kernels (launches: the compress's; permute: the grinding path's)
     print(json.dumps({"kernels": [{
         "name": f"poseidon2_{name}",
         "route": "cuda",
@@ -1304,7 +1531,7 @@ def main() -> int:
         "bound_by": b["bound_by"],
         "library_ms": None,
     } for name, (_, ms, plain_ms, b) in timed.items()]}))
-    # 14. result
+    # 16. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,6 +24,14 @@ It writes `zktls_tpu_torch/data/<session>.guest_input.cbor` (the file
 the port replays with its own `run_guest`.  A new recording changes every
 digest of that session's proof (`proof_sha256` and `chain` in
 `workload.SESSIONS`, which chip_smoke.py holds the card to).
+
+    python scripts/record_session_c02f_p256.py --make-cert
+
+instead writes the self-signed test certificate and key for `localhost`
+that the port's loopback server uses (`workload.LOOPBACK_CERT`,
+`LOOPBACK_KEY`: tests and chip_smoke.py only), so that a host without
+`cryptography` can run that server.  A new pair changes the live
+recordings' leaf SPKI hash, nothing committed.
 """
 
 from __future__ import annotations
@@ -37,10 +45,15 @@ import sys
 import tempfile
 import threading
 
-import numpy as np
-
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+
+from zktls_tpu_torch.workload import (  # noqa: E402
+    LOOPBACK_CERT,
+    LOOPBACK_KEY,
+    loopback_request,
+    loopback_response,
+)
 
 DATA = ROOT / "zktls_tpu_torch" / "data"
 #: suite → (the GuestInput file, the TLS 1.3 suites offered: None for the
@@ -50,28 +63,6 @@ SUITES = {
     "1302": ("session_1302_x25519.guest_input.cbor", ()),
     "1303": ("session_1303_x25519.guest_input.cbor", (0x1303,)),
 }
-BODY_LEN = 512
-PRICE_PREFIX = b'"price":"'
-PRICE_LEN = 10
-SEED = 0
-
-
-def response_bytes() -> bytes:
-    """An HTTP response whose body is 512 seeded ASCII bytes of JSON."""
-    rng = np.random.default_rng(SEED)
-    price = "".join(str(d) for d in rng.integers(0, 10, PRICE_LEN))
-    head = (b'{"symbol":"ETHUSD",' + PRICE_PREFIX + price.encode()
-            + b'","data":"')
-    tail = b'"}'
-    alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789",
-                             dtype=np.uint8)
-    pad = alphabet[rng.integers(0, len(alphabet),
-                                BODY_LEN - len(head) - len(tail))].tobytes()
-    body = head + pad + tail
-    return (b"HTTP/1.1 200 OK\r\nContent-Type: application/json\r\n"
-            b"Content-Length: " + str(BODY_LEN).encode() + b"\r\n\r\n" + body)
-
-
 def _self_signed(tmp: pathlib.Path) -> tuple[pathlib.Path, pathlib.Path]:
     from cryptography import x509
     from cryptography.hazmat.primitives import hashes, serialization
@@ -89,7 +80,7 @@ def _self_signed(tmp: pathlib.Path) -> tuple[pathlib.Path, pathlib.Path]:
             .add_extension(x509.SubjectAlternativeName(
                 [x509.DNSName("localhost")]), critical=False)
             .sign(key, hashes.SHA256()))
-    certfile, keyfile = tmp / "cert.pem", tmp / "key.pem"
+    certfile, keyfile = tmp / LOOPBACK_CERT.name, tmp / LOOPBACK_KEY.name
     certfile.write_bytes(cert.public_bytes(serialization.Encoding.PEM))
     keyfile.write_bytes(key.private_bytes(
         serialization.Encoding.PEM,
@@ -104,10 +95,10 @@ def record(tls13_offered: tuple[int, ...] | None) -> bytes:
     1.3 session offering these suites (the recorder's default list if
     empty)."""
     import zktls_tpu.host.recorder as recorder
-    from zktls_tpu.core.types import PrefixTemplate, Request, RequestInfo
+    from zktls_tpu.core.types import Request
     from zktls_tpu.host.input_builder import TLSInputBuilder
 
-    response = response_bytes()
+    response = loopback_response()
     with tempfile.TemporaryDirectory() as tmp:
         certfile, keyfile = _self_signed(pathlib.Path(tmp))
         ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
@@ -140,14 +131,7 @@ def record(tls13_offered: tuple[int, ...] | None) -> bytes:
 
         t = threading.Thread(target=serve, daemon=True)
         t.start()
-        req = Request(
-            version=1,
-            request_info=RequestInfo(
-                request=b"GET /v1/price?symbol=ETHUSD HTTP/1.1\r\n"
-                        b"Host: localhost\r\nConnection: close\r\n\r\n",
-                remote_addr=f"127.0.0.1:{port}", server_name="localhost"),
-            response_template=[PrefixTemplate(prefix=PRICE_PREFIX,
-                                              length=PRICE_LEN)])
+        req = Request.from_json(loopback_request(port).to_json())
         saved = recorder._OFFERED_SUITES
         if tls13_offered:
             recorder._OFFERED_SUITES = list(tls13_offered)
@@ -164,7 +148,14 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--suite", choices=sorted(SUITES), default="c02f",
                     help="the session to record (default c02f)")
+    ap.add_argument("--make-cert", action="store_true",
+                    help="write the loopback test certificate and key "
+                    "instead")
     args = ap.parse_args()
+    if args.make_cert:
+        certfile, keyfile = _self_signed(LOOPBACK_CERT.parent)
+        print(f"wrote {certfile} and {keyfile}")
+        return
     name, offered = SUITES[args.suite]
     DATA.mkdir(exist_ok=True)
     gi_bytes = record(offered)

@@ -95,6 +95,14 @@ digest + 1), and `export_verifier("evm")` (file digests, `EXPORT_SHA256`);
 `--reference` also holds the JAX package's `wrap_setup().vk()`, circuits
 and exported files to the port's and lets its `wrap_verify` and
 `simulate_zktls_verify` judge the port's seals.
+`--single fib|bytes` proves the single-AIR proof of `workload.SINGLES`
+(the Fibonacci AIR of tests/test_stark.py; a byte-range LogUp table with
+grinding) with `stark.prover.prove` on the CPU and requires it to equal the JAX
+package's committed bytes (`zktls_tpu_torch/data/fib_single.jax.proof`,
+`bytes_single.jax.proof`, which tests/test_torch_paths.py reads);
+`--reference` also proves it with the JAX package again (~1 min of XLA
+compiles), writes those bytes to `build/single_<name>.jax.proof` (or
+`--out`) and requires them to equal the committed file.
 `--no-reference --out PROOF` proves on a host without the JAX package, such
 as the card machine's, and keeps the proof where the caller wants it.
 """
@@ -128,10 +136,14 @@ def main() -> None:
                     help="prove tests/test_torch_machine.py's (sha) or "
                          "tests/test_torch_shrink.py's (bn) machine "
                          "against its committed JAX proof instead")
+    ap.add_argument("--single", choices=("fib", "bytes"),
+                    help="prove this single-AIR proof against its committed "
+                         "JAX bytes instead")
     ap.add_argument("--snark", choices=("bn", "journal"),
                     help="run this Groth16 path of workload.SNARKS instead")
     ap.add_argument("--reference", action="store_true",
-                    help="--compress fib, --machine, --snark: make the JAX "
+                    help="--compress fib, --machine, --single, --snark: "
+                         "make the JAX "
                          "package's bytes again and hold them to the "
                          "committed file")
     ap.add_argument("--threads", type=int, default=8,
@@ -165,6 +177,9 @@ def main() -> None:
         return
     if args.machine:
         (machine_sha if args.machine == "sha" else machine_bn)(args)
+        return
+    if args.single:
+        single(args)
         return
     if args.snark:
         (snark_bn if args.snark == "bn" else snark_journal)(args)
@@ -360,6 +375,33 @@ def _hold_to_committed(mine: bytes, path: pathlib.Path, make_reference,
         sys.exit("the port's bytes differ from the committed JAX bytes")
     print("port == committed JAX bytes" + (" == live JAX bytes"
                                            if args.reference else ""))
+
+
+def single(args) -> None:
+    """`--single fib|bytes [--reference]` (module docstring)."""
+    from zktls_tpu_torch.stark.config import StarkConfig
+    from zktls_tpu_torch.stark.prover import prove
+    from zktls_tpu_torch.workload import SINGLES, single_air
+
+    cfg, path = SINGLES[args.single]
+    air, trace, publics = single_air(args.single)
+    t0 = time.perf_counter()
+    mine = prove(air, trace, publics, StarkConfig(**cfg),
+                 device="cpu").to_bytes()
+    print(f"port prove {time.perf_counter() - t0:.1f} s, "
+          f"{len(mine)} bytes")
+
+    def reference() -> bytes:
+        from zktls_tpu.stark.chips.bytes_table import ByteRangeAir
+        from zktls_tpu.models.fibonacci import FibonacciAir
+        from zktls_tpu.stark.config import StarkConfig as JStarkConfig
+        from zktls_tpu.stark.prover import prove as jprove
+
+        jair = FibonacciAir() if args.single == "fib" else ByteRangeAir()
+        return jprove(jair, trace, publics, JStarkConfig(**cfg)).to_bytes()
+
+    _hold_to_committed(mine, path, reference, args,
+                       f"single_{args.single}.jax.proof")
 
 
 def machine_sha(args) -> None:

@@ -8,6 +8,7 @@ prove_machine is replaced by a stub that records what it was given."""
 
 import json
 import pathlib
+import socket
 import subprocess
 import sys
 
@@ -27,7 +28,7 @@ from zktls_tpu.guest import roots as jroots
 from zktls_tpu.guest.program import run_guest as jrun_guest
 from zktls_tpu.provers import stark as jstark
 from zktls_tpu_torch.cli import main
-from zktls_tpu_torch.core.types import GuestInput
+from zktls_tpu_torch.core.types import GuestInput, Request
 from zktls_tpu_torch.guest import roots
 from zktls_tpu_torch.provers import stark as tstark
 from zktls_tpu_torch.provers.mock import MockProver
@@ -150,16 +151,38 @@ def test_prove_missing_input_file(capsys):
 @pytest.mark.parametrize("extra", [
     ["prove", "--network"], ["prove"], ["serve"]],
     ids=["network", "live", "serve"])
-def test_unported_modes_exit_1(request_json, capsys, extra):
+def test_unported_modes_exit_1(request_json, tmp_path, capsys, extra):
     """Live recording (no --fixture), the remote prover and the prover
-    service are refused with a message, not run some other way."""
-    args = list(extra)
-    if extra[0] == "prove":
-        args += ["-i", request_json]
-        if extra != ["prove"]:
-            args += ["--fixture", str(SESSION_GUEST_INPUT)]
-    assert main(args) == 1
-    assert "not ported yet" in capsys.readouterr().err
+    service, all ported now, exit 1 with the error when their peer or port
+    is not there — a closed port to record from or prove at, a port
+    already taken to serve on — and are not run some other way."""
+    taken = socket.socket()
+    taken.bind(("127.0.0.1", 0))
+    port = taken.getsockname()[1]
+    try:
+        if extra == ["serve"]:
+            taken.listen(1)
+            args = ["serve", "-p", "mock", "--port", str(port)]
+            want = "in use"
+        elif extra == ["prove"]:
+            taken.close()
+            req = tmp_path / "closed.json"
+            req.write_text(Request.from_json(pathlib.Path(
+                request_json).read_text()).to_json().replace(
+                    GuestInput.from_cbor(SESSION_GUEST_INPUT.read_bytes())
+                    .request.request_info.remote_addr, f"127.0.0.1:{port}"))
+            args = ["prove", "-i", str(req), "--mock"]
+            want = "refused"
+        else:
+            taken.close()
+            args = ["prove", "-i", request_json, "--fixture",
+                    str(SESSION_GUEST_INPUT), "--network", "--server",
+                    f"http://127.0.0.1:{port}"]
+            want = "remote prove failed"
+        assert main(args) == 1
+        assert want in capsys.readouterr().err
+    finally:
+        taken.close()
 
 
 def test_prove_compress_compresses_then_verifies(anchored, request_json,

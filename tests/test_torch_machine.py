@@ -32,6 +32,7 @@ from zktls_tpu_torch.convert import (chip_instance_from_reference,
 from zktls_tpu_torch.ops import babybear as tbb
 from zktls_tpu_torch.ops.field_ref import Fp4 as TFp4
 from zktls_tpu_torch.stark import machine as tmachine
+from zktls_tpu_torch.stark import prover as tprover
 from zktls_tpu_torch.stark.bus import BUS_SHA_RESULT, digest_limbs
 from zktls_tpu_torch.stark.chips.sha256 import Sha256Air
 from zktls_tpu_torch.stark.chips.sha256 import sha256_trace
@@ -180,13 +181,13 @@ def test_grinding_witness_matches_reference(ref, monkeypatch):
     package's _grind_device picks from the same challenger state, and both
     verifiers accept the proof."""
     seen = {}
-    grind = tmachine._grind_device
+    grind = tprover._grind_device
 
     def spy(ch, pow_bits, device):
         seen["ch"] = ch.clone()
         return grind(ch, pow_bits, device)
 
-    monkeypatch.setattr(tmachine, "_grind_device", spy)
+    monkeypatch.setattr(tprover, "_grind_device", spy)
     cfg = dict(CFG, pow_bits=4)
     inst = chip_instance_from_reference(ref["inst"])
     proof = tmachine.prove_machine([inst], BINDING, StarkConfig(**cfg),

@@ -10,10 +10,11 @@ an obvious counterpart:
   core/      the data model (Request, GuestInput and their CBOR/JSON
              codecs), the CBOR codec the proof bytes rest on, the tapes
   stark/     config, challenger, AIR builders, LogUp bus helpers, the
-             constraint-VM lowering, prover/verifier helpers, the machine
-             prover/verifier, the recursion rungs (`recursion.py`: compress
-             and shrink) and the shrink's BN254/MiMC-committed machine
-             (`machine_bn.py`, `commit_bn.py`)
+             constraint-VM lowering, the single-AIR prover/verifier
+             (`prover.prove`, `verifier.verify`, `proof.StarkProof`), the
+             machine prover/verifier, the recursion rungs (`recursion.py`:
+             compress and shrink) and the shrink's BN254/MiMC-committed
+             machine (`machine_bn.py`, `commit_bn.py`)
   snark/     the MP-MiMC hash over the BN254 scalar field
   utils/     the host Poseidon2 and MiMC in C (csrc/*_host.c), built at
              first use
@@ -26,18 +27,24 @@ an obvious counterpart:
              (`program.run_guest`), certificate chains read by the port's
              own DER reader (`der.py`, `x509.py`, `roots.py`), the crypto
              it records, the journal codec
-  provers/   `stark.StarkGuestProver` (prove, verify),
-             `stark.build_chip_instances`, `mock.MockProver`
+  host/      the live TLS recorder and input builder (`record_tls_call`,
+             `TLSInputBuilder`)
+  provers/   `stark.StarkGuestProver` (prove, verify, compress, wrap,
+             batches), `stark.build_chip_instances`, `mock.MockProver`,
+             `service` (the prover service over HTTP and its client)
   cli.py     `python -m zktls_tpu_torch.cli prove -i request.json
-             --fixture session.cbor [--mock]`
-  data/      a recorded session's GuestInput
+             [--fixture session.cbor] [--mock | --network --server URL]`,
+             `serve`, `export-verifier`
+  data/      the recorded sessions' GuestInputs, the loopback test
+             certificate, the JAX package's reference proofs
   convert.py carries the reference's objects across (duck-typed), for the
              tests
   workload.py, profile_prove.py
              the machines chip_smoke.py drives (a seeded Sha256Air machine,
              the recorded session), and a device-time breakdown of a prove
 
-`stark.machine.prove_machine` and `StarkGuestProver` run on the CUDA card
-unless the caller passes device="cpu"; without a card and without an
-explicit CPU device they raise.  `stark.machine.verify_machine` is host code.
+`stark.machine.prove_machine`, `stark.prover.prove` and `StarkGuestProver`
+run on the CUDA card unless the caller passes device="cpu"; without a card
+and without an explicit CPU device they raise.  The verifiers are host
+code.
 """

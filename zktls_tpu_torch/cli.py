@@ -4,19 +4,22 @@ Mirrors the reference CLI surface (bins/zktls/src/main.rs:14-21,
 commands/prove.rs:14-48):
 
   python -m zktls_tpu_torch.cli prove -i <request.json> -t <chain>
-              [-p <prover>] [--mock | --local] --fixture <recorded.cbor>
-              [--compress | --wrap] [-o <out.json>]
+              [-p <prover>] [--mock | --local | --network --server <url>]
+              [--fixture <recorded.cbor>] [--compress | --wrap]
+              [-o <out.json>]
+  python -m zktls_tpu_torch.cli serve [-p stark|mock] [--host H] [--port N]
   python -m zktls_tpu_torch.cli export-verifier [-t <chain>] [-o <dir>]
 
-Port of zktls_tpu.cli (same flags, output lines and JSON file).  `--fixture`
-replays a recorded session tape; the STARK prover runs on the CUDA card.
-`--compress` wraps the machine proof in the recursion layer and verifies
-it through the vk fast path; `--wrap` runs compress, shrink and the
-Groth16 seal (`StarkGuestProver.wrap`) and verifies the seal.
+Port of zktls_tpu.cli (same flags, output lines and JSON file).  Without
+`--fixture`, `prove` records a live TLS call to the request's server
+(host/input_builder.py); `--fixture` replays a recorded session tape
+instead.  The STARK prover runs on the CUDA card; `--network` sends the
+session to a prover service at `--server` (provers/service.py), which
+`serve` runs.  `--compress` wraps the machine proof in the recursion layer
+and verifies it through the vk fast path; `--wrap` runs compress, shrink
+and the Groth16 seal (`StarkGuestProver.wrap`) and verifies the seal.
 `export-verifier` writes the on-chain verifier of the journal wrap
-(verifier_export.py).  Not ported yet, and each reported as an error
-(exit code 1): live recording (no `--fixture`), `--network` and the
-`serve` command.
+(verifier_export.py).
 """
 
 from __future__ import annotations
@@ -34,15 +37,14 @@ log = logging.getLogger("zktls")
 TARGET_CHAINS = ["evm", "solana", "sui", "aptos", "ton"]
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet to the PyTorch "
-                               "port (zktls_tpu_torch)")
-
-
 def _load_guest_input(args) -> GuestInput:
     request = Request.from_json(pathlib.Path(args.input).read_text())
     if not args.fixture:
-        raise _not_ported("live TLS recording (prove without --fixture)")
+        from .host.input_builder import TLSInputBuilder
+
+        log.info("recording live TLS session to %s",
+                 request.request_info.remote_addr)
+        return TLSInputBuilder().build_input(request)
     data = pathlib.Path(args.fixture).read_bytes()
     try:
         gi = GuestInput.from_cbor(data)
@@ -72,14 +74,19 @@ def cmd_prove(args) -> int:
         print(f"error: input file {args.input!r} does not exist",
               file=sys.stderr)
         return 2
-    if args.network:
-        raise _not_ported("--network")
     guest_input = _load_guest_input(args)
 
     if args.mock:
         from .provers.mock import MockProver
 
         prover = MockProver()
+    elif args.network:
+        from .provers.service import RemoteGuestProver
+
+        if not args.server:
+            print("error: --network needs --server", file=sys.stderr)
+            return 2
+        prover = RemoteGuestProver(args.server)
     else:
         from .provers.stark import StarkGuestProver
 
@@ -119,7 +126,14 @@ def cmd_prove(args) -> int:
 
 
 def cmd_serve(args) -> int:
-    raise _not_ported("the serve command (the prover service)")
+    from .provers.service import serve
+
+    service = serve(args.prover, args.host, args.port)
+    try:
+        service.serve_forever()
+    except KeyboardInterrupt:
+        service.stop()
+    return 0
 
 
 def cmd_export_verifier(args) -> int:
@@ -155,12 +169,12 @@ def build_parser() -> argparse.ArgumentParser:
                       help="prove on the local CUDA card (default)")
     mode.add_argument("--network", action="store_true",
                       help="delegate proving to a remote prover service "
-                      "(not ported yet)")
+                      "(the reference's moongate/Bonsai mode)")
     pr.add_argument("--server",
                     default=None,
-                    help="prover service URL for --network (not ported yet)")
+                    help="prover service URL for --network")
     pr.add_argument("--fixture", help="recorded session CBOR to replay "
-                    "(live recording is not ported yet)")
+                    "(otherwise a live TLS call is recorded)")
     pr.add_argument("--compress", action="store_true",
                     help="wrap the machine proof in the recursion layer")
     pr.add_argument("--wrap", action="store_true",
@@ -178,7 +192,7 @@ def build_parser() -> argparse.ArgumentParser:
     ev.set_defaults(func=cmd_export_verifier)
 
     sv = sub.add_parser("serve",
-                        help="run a prover service (not ported yet)")
+                        help="run a prover service")
     sv.add_argument("-p", "--prover", choices=["stark", "mock"],
                     default="stark", help="prover backend to serve")
     sv.add_argument("--host", default="127.0.0.1")

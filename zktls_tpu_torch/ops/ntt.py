@@ -4,8 +4,13 @@ Baby-Bear as torch ops, batched over the columns of an (n, C) matrix.
 Counterpart of zktls_tpu.ops.ntt: one bit-reversal gather, then log2(n)
 decimation-in-time stages written as reshapes and slices; Montgomery
 values in and out; twiddle tables built on the host (numpy, exact) and
-cached per size and device.  The four-step split of the reference (for
-n ≥ 2^23) is not ported yet.
+cached per size and device.
+
+From n = 2^_FOUR_STEP_LOG up, as in the reference, `ntt` takes the
+four-step split (n = n1·n2: size-n1 column transforms, a twiddle
+multiply, a transpose, size-n2 row transforms; `_ntt_four_step`).  It
+gives radix-2's values; on an H100 it was 4 % faster at 2^23 and 2^25
+rows and held one more copy of the matrix (PERF.md §5).
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ __all__ = ["ntt", "intt", "coset_lde", "coeffs_to_coset_evals",
 #: output bytes (int64): a whole (2^25, 40) perm extension, 10.7 GB, would
 #: hold several times its size in butterfly temporaries at once
 LDE_BLOCK_BYTES = float(1 << 32)
+#: `ntt` takes the four-step split from n = 2^this up (the reference's)
+_FOUR_STEP_LOG = 23
 
 
 def powers(base: int, n: int) -> np.ndarray:
@@ -98,6 +105,47 @@ def _ntt_args(log_n: int, inverse: bool, device: torch.device):
     return rev, tws
 
 
+@lru_cache(maxsize=None)
+def _four_step_tw(log_n: int, inverse: bool) -> np.ndarray:
+    """(n1, n2) twiddle matrix w_n^{j2·k1} for the four-step split,
+    Montgomery form (host-cached)."""
+    log1 = (log_n + 1) // 2
+    n1, n2 = 1 << log1, 1 << (log_n - log1)
+    w = two_adic_root(log_n)
+    if inverse:
+        w = pow(w, P - 2, P)
+    base = powers(w, n1)                               # w^k1
+    tw = np.empty((n1, n2), dtype=np.uint64)
+    tw[:, 0] = 1
+    for j2 in range(1, n2):
+        tw[:, j2] = tw[:, j2 - 1] * base % np.uint64(P)
+    return bb.np_to_mont(tw.astype(np.uint32))
+
+
+@lru_cache(maxsize=None)
+def _four_step_tw_dev(log_n: int, inverse: bool, device: torch.device):
+    return bb.from_numpy(_four_step_tw(log_n, inverse), device)
+
+
+def _ntt_four_step(x: torch.Tensor, log_n: int, inverse: bool
+                   ) -> torch.Tensor:
+    """n = n1·n2 split of an (n, C) matrix: column NTTs (size n1), twiddle
+    multiply, transpose, row NTTs (size n2); the 1/n of an inverse is
+    spread over the two sub-transforms."""
+    n = 1 << log_n
+    cols = x.shape[1]
+    log1 = (log_n + 1) // 2
+    n1, n2 = 1 << log1, 1 << (log_n - log1)
+    a = _ntt_radix2(x.reshape(n1, n2 * cols), inverse)   # size-n1
+    tw = _four_step_tw_dev(log_n, inverse, x.device)      # (n1, n2)
+    a = bb.mul(a.view(n1, n2, cols), tw[:, :, None])
+    a = a.transpose(0, 1).reshape(n2, n1 * cols)
+    a = _ntt_radix2(a, inverse)                           # size-n2
+    # in-order output: element [k2, k1] sits at index k1 + n1·k2 — the
+    # C-order reshape of the (n2, n1) layout is exactly that
+    return a.reshape(n, cols)
+
+
 def ntt(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """In-order -> in-order NTT along dim 0; x is (n,) or (n, C) in
     Montgomery form.  inverse=True includes the 1/n scaling."""
@@ -108,7 +156,17 @@ def ntt(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
-    cols = x.shape[1]
+    if log_n >= _FOUR_STEP_LOG:
+        x = _ntt_four_step(x, log_n, inverse)
+    else:
+        x = _ntt_radix2(x, inverse)
+    return x[:, 0] if squeeze else x
+
+
+def _ntt_radix2(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The radix-2 NTT of an (n, C) matrix along dim 0."""
+    n, cols = x.shape
+    log_n = n.bit_length() - 1
     rev, tws = _ntt_args(log_n, inverse, x.device)
     x = x[rev]
     for s in range(log_n):
@@ -120,7 +178,7 @@ def ntt(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     if inverse:
         x = bb.mul(x, int(bb.np_to_mont(np.array([pow(n, P - 2, P)],
                                                  dtype=np.uint32))[0]))
-    return x[:, 0] if squeeze else x
+    return x
 
 
 def intt(x: torch.Tensor) -> torch.Tensor:

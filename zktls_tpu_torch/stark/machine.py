@@ -24,8 +24,11 @@ Single-device features, all the reference's:
     per source matrix and row block instead of over one concatenation.
   Every setting gives the same proof bytes.
 
-Not ported: several devices.  FRI is the reference's host-driven fold
-loop, which gives the same bytes as its fused device program.
+Not ported: several devices.  FRI is the host-driven fold loop
+(prover._fri_commit), which gives the same bytes as the reference's fused
+device program (its ZKTLS_FUSED_FRI); the quotient is the reference's
+default, the constraint VM (not its ZKTLS_QUOTIENT=xla direct
+evaluation).
 """
 
 from __future__ import annotations
@@ -52,10 +55,11 @@ from .proof import FriStep
 from .prover import (
     _deep_fn,
     _ext_evals_at,
-    _fold_layer,
-    _grind_device,
-    _inv_2x,
-    _pair_rows,
+    _fri_commit,
+    _fri_steps,
+    _grind_and_sample,
+    _mont,
+    _open_path,
     _zeta_powers,
 )
 from .verifier import VerificationError, _eval_periodic, _final_low_degree
@@ -271,11 +275,6 @@ def _resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
-
-
-def _mont(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Plain uint32 numpy -> Montgomery field tensor on `dev`."""
-    return bb.to_mont(bb.from_numpy(arr, dev))
 
 
 def _spill(d: dict, keys, limit: float, dev: torch.device) -> None:
@@ -617,38 +616,12 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
     _mark("deep")
 
     # 6. mixed-height FRI (host-driven fold loop)
-    fri_roots = []
-    fri_trees = []
-    fri_layers = []
-    cur = deep_by_log[log_N_max]
-    cur_shift = config.shift
-    cur_log = log_N_max
-    while (1 << cur_log) > config.fri_final_size:
-        tree = MerkleTree(_pair_rows(cur))
-        root = [int(x) for x in tree.root]
-        fri_trees.append(tree)
-        fri_roots.append(root)
-        fri_layers.append(cur)
-        ch.observe_many(root)
-        beta_l = ch.sample_ext()
-        cur = _fold_layer(cur, beta_l, _inv_2x(cur_log, cur_shift))
-        cur_shift = cur_shift * cur_shift % P
-        cur_log -= 1
-        if cur_log in deep_by_log:
-            cur = ex.ext_add(cur, deep_by_log[cur_log])
-    final_plain = bb.np_from_mont(bb.to_numpy(cur))
-    fri_final = [Fp4(*[int(x) for x in row]) for row in final_plain]
-    for v in fri_final:
-        ch.observe_ext(v)
+    fri_roots, fri_trees, fri_layers, fri_final = _fri_commit(
+        ch, deep_by_log, config, log_N_max)
     _mark("fri")
 
     # 7. grinding + queries
-    pow_witness = 0
-    if config.pow_bits:
-        pow_witness = _grind_device(ch, config.pow_bits, dev)
-    ch.check_witness(config.pow_bits, pow_witness)
-    q_indices = [ch.sample_bits(log_N_max)
-                 for _ in range(config.num_queries)]
+    pow_witness, q_indices = _grind_and_sample(ch, config, log_N_max, dev)
 
     # gather queried rows per chip (index = q mod N_i), on the device that
     # holds each matrix (the host for a spilled one)
@@ -670,29 +643,14 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
             "pre": _rows(d["pre_lde"]) if "pre_lde" in d else None,
         }
 
-    # per-layer FRI pair gathers
-    fri_pairs: list[np.ndarray] = []
-    qq_per_layer: list[list[int]] = []
-    cur_qs = list(q_indices)
-    for ell, layer_vals in enumerate(fri_layers):
-        half = (1 << (log_N_max - ell)) // 2
-        js = [q % half for q in cur_qs]
-        idx = torch.tensor(js + [j + half for j in js], dtype=torch.int64,
-                           device=dev)
-        fri_pairs.append(bb.np_from_mont(bb.to_numpy(layer_vals[idx])))
-        qq_per_layer.append(js)
-        cur_qs = js
-
-    def _path(tree, j):
-        return [[int(x) for x in h] for h in tree.open(j)]
+    fri_steps = _fri_steps(fri_layers, fri_trees, q_indices, log_N_max)
 
     def _opened(rows, tree, qi_pos, j):
         if rows is None:
             return [], []
-        return [int(x) for x in rows[qi_pos]], _path(tree, j)
+        return [int(x) for x in rows[qi_pos]], _open_path(tree, j)
 
     queries = []
-    nq = config.num_queries
     for qi_pos, q in enumerate(q_indices):
         openings = []
         for inst, log_n in metas:
@@ -705,20 +663,14 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
                                         qi_pos, j)
             openings.append(ChipOpening(
                 trace_row=[int(x) for x in rc["trace"][qi_pos]],
-                trace_path=_path(d["trace_tree"], j),
+                trace_path=_open_path(d["trace_tree"], j),
                 quotient_row=[int(x) for x in rc["quot"][qi_pos]],
-                quotient_path=_path(d["q_tree"], j),
+                quotient_path=_open_path(d["q_tree"], j),
                 perm_row=perm_row, perm_path=perm_path,
                 pre_row=pre_row, pre_path=pre_path,
             ))
-        steps = []
-        for ell, tree in enumerate(fri_trees):
-            pair = (Fp4(*[int(x) for x in fri_pairs[ell][qi_pos]]),
-                    Fp4(*[int(x) for x in fri_pairs[ell][nq + qi_pos]]))
-            steps.append(FriStep(pair=pair,
-                                 path=_path(tree, qq_per_layer[ell][qi_pos])))
         queries.append(MachineQuery(index=q, openings=openings,
-                                    fri_steps=steps))
+                                    fri_steps=fri_steps[qi_pos]))
     _mark("queries")
 
     return MachineProof(

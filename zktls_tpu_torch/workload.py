@@ -38,17 +38,34 @@ Each session is a loopback recording (scripts/record_session_c02f_p256.py
 --suite ...) with a 512-byte JSON body of which 10 bytes are filtered,
 whose self-signed certificate anchors to no root of the store, so it is
 replayed with `require_trust_anchor=False`.
+
+* `single_air(name)`: the single-AIR proofs (`stark.prover.prove`) held
+  to the JAX package's committed bytes (`SINGLES`): the Fibonacci AIR of
+  tests/test_stark.py and a LogUp byte-range table (ByteRangeAir) with
+  grinding.
+* `loopback_server(suite)`, `record_loopback(suite)`: a live recording
+  by the port's recorder (host/) against a one-connection TLS server on
+  127.0.0.1 (Python's `ssl`) answering `loopback_request`'s request with
+  the same 512-byte body (`loopback_response`).  The server's certificate
+  and key, `LOOPBACK_CERT` and `LOOPBACK_KEY` (`data/loopback_rsa2048.*`,
+  made by scripts/record_session_c02f_p256.py --make-cert), are a
+  self-signed test pair for `localhost`: for the tests and chip_smoke.py
+  only, never for a real server.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import socket
+import ssl
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 
-import hashlib
-
 import numpy as np
 
+from .core.types import GuestInput, PrefixTemplate, Request, RequestInfo
 from .guest.crypto.sha256 import SHA256Recorder
 from .models.fibonacci import FibonacciAir, fibonacci_trace
 from .ops.field_ref import P
@@ -70,7 +87,9 @@ __all__ = ["sha_machine", "Session", "SESSIONS", "SESSION_GUEST_INPUT",
            "FIB_CHAIN_VKS_REFERENCE", "Snark", "SNARKS", "WRAP_BN_CONFIG",
            "WRAP_BN_BINDING", "WRAP_BN_SEED", "WRAP_BN_RANDOMNESS",
            "WRAP_BN_REFERENCE", "wrap_bn_machine", "r1cs_digests",
-           "EXPORT_SHA256"]
+           "EXPORT_SHA256", "LOOPBACK_CERT", "LOOPBACK_KEY",
+           "LOOPBACK_TLS12", "loopback_response", "loopback_request",
+           "loopback_server", "record_loopback", "SINGLES", "single_air"]
 
 DATA = Path(__file__).resolve().parent / "data"
 
@@ -302,13 +321,14 @@ BN_MACHINE_BINDING = b"bn-machine"
 BN_MACHINE_REFERENCE = DATA / "bn_machine.jax.proof"
 
 
-def fib_chain(device="cpu"):
+def fib_chain(device=None):
     """(inner proof, compress vk, compress proof) of the tiny chain, proved
-    by the port on `device`."""
+    by the port on `device` (the card unless "cpu" is asked for)."""
     from .stark.config import StarkConfig
-    from .stark.machine import prove_machine
+    from .stark.machine import _resolve_device, prove_machine
     from .stark.recursion import recursion_prove
 
+    device = _resolve_device(device)
     cfg = StarkConfig(**FIB_CHAIN_CONFIG)
     trace, pub = fibonacci_trace(5)
     inner = prove_machine(
@@ -502,3 +522,124 @@ def r1cs_digests(cs) -> dict:
                 c.update(int(k).to_bytes(4, "big")
                          + int(v).to_bytes(32, "big"))
     return {"assignment": h.hexdigest(), "constraints": c.hexdigest()}
+
+
+#: single-AIR proof -> (its StarkConfig keywords, the JAX package's proof
+#: bytes, made by scripts/session_proof_cpu.py --single NAME --reference)
+SINGLES = {
+    "fib": (dict(log_blowup=2, num_queries=12, fri_final_size=32),
+            DATA / "fib_single.jax.proof"),
+    "bytes": (dict(log_blowup=2, num_queries=10, pow_bits=4,
+                   fri_final_size=32), DATA / "bytes_single.jax.proof"),
+}
+
+
+def single_air(name: str, log_n: int | None = None
+               ) -> tuple[Air, np.ndarray, list[int]]:
+    """(AIR, plain trace, publics) of a single-AIR proof of SINGLES:
+    "fib", Fibonacci with 2^log_n rows (2^6 when None); "bytes", 2^log_n
+    seeded bytes range-checked against the 256-entry table (200 values in
+    256 rows when None)."""
+    if name == "fib":
+        trace, publics = fibonacci_trace(6 if log_n is None else log_n)
+        return FibonacciAir(), trace, publics
+    from .stark.chips.bytes_table import ByteRangeAir, byte_range_trace
+
+    count = 200 if log_n is None else 1 << log_n
+    values = np.random.default_rng(7).integers(0, 256, count)
+    return ByteRangeAir(), byte_range_trace([int(v) for v in values]), []
+
+
+LOOPBACK_CERT = DATA / "loopback_rsa2048.cert.pem"
+LOOPBACK_KEY = DATA / "loopback_rsa2048.key.pem"
+#: the loopback server's cipher string for each TLS 1.2 suite; any other
+#: suite is TLS 1.3, offered alone by the client
+LOOPBACK_TLS12 = {0xC02F: "ECDHE-RSA-AES128-GCM-SHA256",
+                  0xCCA8: "ECDHE-RSA-CHACHA20-POLY1305"}
+_PRICE_PREFIX, _PRICE_LEN, _BODY_LEN = b'"price":"', 10, 512
+
+
+def loopback_response(seed: int = 0) -> bytes:
+    """An HTTP response whose body is 512 seeded ASCII bytes of JSON (the
+    committed sessions' answer)."""
+    rng = np.random.default_rng(seed)
+    price = "".join(str(d) for d in rng.integers(0, 10, _PRICE_LEN))
+    head = (b'{"symbol":"ETHUSD",' + _PRICE_PREFIX + price.encode()
+            + b'","data":"')
+    tail = b'"}'
+    alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789",
+                             dtype=np.uint8)
+    pad = alphabet[rng.integers(0, len(alphabet),
+                                _BODY_LEN - len(head) - len(tail))].tobytes()
+    return (b"HTTP/1.1 200 OK\r\nContent-Type: application/json\r\n"
+            b"Content-Length: " + str(_BODY_LEN).encode() + b"\r\n\r\n"
+            + head + pad + tail)
+
+
+def loopback_request(port: int) -> Request:
+    """The committed sessions' request, to 127.0.0.1:port: the price
+    field's 10 bytes filtered by a prefix template."""
+    return Request(
+        version=1,
+        request_info=RequestInfo(
+            request=b"GET /v1/price?symbol=ETHUSD HTTP/1.1\r\n"
+                    b"Host: localhost\r\nConnection: close\r\n\r\n",
+            remote_addr=f"127.0.0.1:{port}", server_name="localhost"),
+        response_template=[PrefixTemplate(prefix=_PRICE_PREFIX,
+                                          length=_PRICE_LEN)])
+
+
+@contextlib.contextmanager
+def loopback_server(suite: int):
+    """A one-connection TLS server on 127.0.0.1 with the committed test
+    certificate, limited to `suite` (TLS 1.2 over P-256 for the suites of
+    LOOPBACK_TLS12, else TLS 1.3): it reads one request and answers
+    `loopback_response()`.  Yields its port."""
+    response = loopback_response()
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    version = (ssl.TLSVersion.TLSv1_2 if suite in LOOPBACK_TLS12
+               else ssl.TLSVersion.TLSv1_3)
+    ctx.minimum_version = ctx.maximum_version = version
+    if suite in LOOPBACK_TLS12:
+        ctx.set_ciphers(LOOPBACK_TLS12[suite])
+        ctx.set_ecdh_curve("prime256v1")
+    ctx.load_cert_chain(LOOPBACK_CERT, LOOPBACK_KEY)
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+
+    def serve():
+        try:
+            conn, _ = srv.accept()
+        except OSError:
+            return                      # closed before a client came
+        try:
+            tls = ctx.wrap_socket(conn, server_side=True)
+            while b"\r\n\r\n" not in tls.recv(4096):
+                pass
+            tls.sendall(response)
+            tls.unwrap()
+        except (OSError, ssl.SSLError):
+            pass  # the client closes without a close_notify
+        finally:
+            conn.close()
+
+    t = threading.Thread(target=serve, daemon=True)
+    t.start()
+    try:
+        yield srv.getsockname()[1]
+    finally:
+        srv.close()
+        t.join(timeout=10)
+
+
+def record_loopback(suite: int, rng=None) -> GuestInput:
+    """A live recording by the port's TLSInputBuilder against
+    `loopback_server(suite)`; a TLS 1.3 suite is the one the client
+    offers.  rng: the recorder's source of random bytes."""
+    from .host.input_builder import TLSInputBuilder
+
+    suites = None if suite in LOOPBACK_TLS12 else [suite]
+    with loopback_server(suite) as port:
+        return TLSInputBuilder(rng=rng, suites=suites).build_input(
+            loopback_request(port))
