@@ -175,17 +175,37 @@ without printing a result:
      sizes the card's bytes equal the committed JAX proofs
      (workload.SINGLES).  The Fibonacci card prove's K1 launches are
      this path's;
- 15. one JSON line describing each kernel (launches: the compress's;
+ 15. several devices in one process (parallel/): the mesh is every card
+     (make_mesh()), or on a host with one card that card twice as two
+     logical shards (seg 1 × ntt 2); which one is printed.  With several
+     cards, a K1 launch on the last card must leave torch's current device
+     at card 0.  (a) ntt_sharded forward and inverse at 2^23 equal
+     ntt/intt, and make_coset_lde_sharded at the 0x1303 session's largest
+     chip (the one whose trace LDE the prove below shards) equals
+     coset_lde; CUDA-event times beside the one-device ones.  (b) The
+     0x1303 session's chips from phase 6 (built here if the sessions path
+     did not run) proved by prove_machine on one device, then with
+     devices= the mesh's devices and mesh= the mesh, the launch counters
+     reset just before each prove and read just after: both proofs must
+     hash to SESSION_PROOF_SHA256["1303"], StarkGuestProver().verify must
+     accept the multi-device proof and reject it against a journal with a
+     changed filtered byte; stage seconds and peak device memory of each.
+     (c) The segment step of __graft_entry__.dryrun_multichip: two seeded
+     (32768, 639) segments per seg device, coset_lde (blowup 2, shift 31)
+     and hash_rows on the segment's device, leaves equal to one device's.
+     The multi-device prove's K1 launches are this path's;
+ 16. one JSON line describing each kernel (launches: the compress's;
      permute: the grinding path's; every path's launches under
      "launches_by_path");
- 16. last line: {"ok": true, "device": {...}}.
+ 17. last line: {"ok": true, "device": {...}}.
 
 `--only` runs phases 1-3 and the named paths of sha, sessions,
-preprocessed, c02f_x2, c02f_x8, compress, shrink, snark, service, paths
-(a check while working on one of them; it prints neither the kernels
-line nor the result; shrink runs compress first unless it was named,
-snark the sessions it seals).  Needs one card, nvcc (/usr/local/cuda), a
-C compiler with OpenMP and no network.
+preprocessed, c02f_x2, c02f_x8, compress, shrink, snark, service, paths,
+parallel (a check while working on one of them; it prints neither the
+kernels line nor the result; shrink runs compress first unless it was
+named, snark the sessions it seals).  Needs one card (the parallel path
+uses every card there is), nvcc (/usr/local/cuda), a C compiler with
+OpenMP and no network.
 """
 
 from __future__ import annotations
@@ -232,7 +252,7 @@ BATCH_PROOF_SHA256 = {
 PARSER_FAULT = "StreamParserAir: constraint identity failed at zeta"
 #: the optional paths, in the order they run
 PATHS = ("sha", "sessions", "preprocessed", "c02f_x2", "c02f_x8",
-         "compress", "shrink", "snark", "service", "paths")
+         "compress", "shrink", "snark", "service", "paths", "parallel")
 #: rows per block of a plain hash_rows held against the kernel
 PLAIN_ROWS = 1 << 21
 #: SHA-256 of the port's DEFAULT_CONFIG compress of the 256-row Sha256Air
@@ -360,6 +380,11 @@ def main() -> int:
         simulate_zktls_verify,
     )
     from zktls_tpu_torch.ops import ntt as ntt_mod
+    from zktls_tpu_torch.parallel.mesh import make_mesh
+    from zktls_tpu_torch.parallel.ntt import (
+        make_coset_lde_sharded,
+        make_ntt_sharded,
+    )
     from zktls_tpu_torch.provers.service import RemoteGuestProver, serve
     from zktls_tpu_torch.stark.proof import StarkProof
     from zktls_tpu_torch.stark.prover import prove as prove_single
@@ -379,6 +404,7 @@ def main() -> int:
         preprocessed_machine,
         r1cs_digests,
         record_loopback,
+        session_machine,
         sha_compress_machine,
         sha_machine,
         shrink_statement,
@@ -460,6 +486,8 @@ def main() -> int:
     errs = {"permute": 0, "hash_rows": 0, "merkle_levels": 0}
 
     session_proofs = {}
+    #: each session's (chips, journal) from phase 6
+    session_chips = {}
 
     def session_path(name: str, covered: set) -> dict:
         """Phases 6 and 7 for one committed session; returns the K1
@@ -481,6 +509,7 @@ def main() -> int:
         t0 = time.perf_counter()
         chips = build_chip_instances(session)
         build_s = time.perf_counter() - t0
+        session_chips[name] = (chips, journal)
         rec512 = session.replay.sha512_recorder
         print(f"{tag} GuestInput {spec.guest_input.name}, run_guest "
               f"(require_trust_anchor=False) {replay_s:.2f} s: journal "
@@ -1475,6 +1504,136 @@ def main() -> int:
         print(f"{tag} total {time.perf_counter() - t_start:.1f} s")
         return launches
 
+    def parallel_path() -> dict:
+        """Phase 15: several devices in one process — the sharded NTT and
+        LDE, the 0x1303 session proved over the mesh's devices, the
+        segment step; returns the K1 launches of the multi-device
+        prove."""
+        tag = "parallel:"
+        t_path = time.perf_counter()
+        n_cards = torch.cuda.device_count()
+        # every card; one card serves as two logical shards
+        mesh = (make_mesh() if n_cards > 1 else make_mesh(1, 2, [dev, dev]))
+        devices = list(mesh.devices.flat)
+        print(f"{tag} mesh {mesh.shape} over {[str(d) for d in devices]} "
+              + ("(every card)" if n_cards > 1 else
+                 "(the one card as two logical shards)"))
+
+        def sync_all():
+            for d in set(devices):
+                torch.cuda.synchronize(d)
+
+        if n_cards > 1:
+            # a K1 launch on another card leaves torch's current device
+            other = devices[-1]
+            torch.cuda.set_device(dev)
+            mk.hash_rows(rand_field(1024, 16).to(other))
+            torch.cuda.synchronize(other)
+            _require(torch.cuda.current_device() == dev.index,
+                     f"{tag} a K1 launch on {other} moved the current "
+                     f"device to {torch.cuda.current_device()}")
+            print(f"{tag} K1 on {other}: torch's current device stays "
+                  f"{dev}")
+
+        # (a) the sharded four-step NTT and LDE against the local ones
+        t0 = time.perf_counter()
+        x = rand_field(1 << 23)
+        sharded = make_ntt_sharded(mesh)
+        for inverse, local in ((False, ntt_mod.ntt), (True, ntt_mod.intt)):
+            _require(torch.equal(sharded(x, inverse=inverse), local(x)),
+                     f"{tag} ntt_sharded(inverse={inverse}) at 2^23 != "
+                     f"{local.__name__}")
+            ms = _time_ms(lambda: sharded(x, inverse=inverse), reps=1,
+                          runs=3)
+            local_ms = _time_ms(lambda: local(x), reps=1, runs=3)
+            print(f"{tag} ntt_sharded(inverse={inverse}) at 2^23 == "
+                  f"{local.__name__}: {ms:.2f} ms against {local_ms:.2f} ms "
+                  "on one device")
+        chips, journal = session_chips.get("1303") or session_machine("1303")
+        widest = max(chips, key=lambda c: c.trace.shape)
+        vals = rand_field(*widest.trace.shape)
+        lde_sharded = make_coset_lde_sharded(mesh)
+        args = (vals, DEFAULT_CONFIG.log_blowup, DEFAULT_CONFIG.shift)
+        _require(torch.equal(lde_sharded(*args), ntt_mod.coset_lde(*args)),
+                 f"{tag} make_coset_lde_sharded != coset_lde")
+        ms = _time_ms(lambda: lde_sharded(*args), reps=1, runs=3)
+        local_ms = _time_ms(lambda: ntt_mod.coset_lde(*args), reps=1,
+                            runs=3)
+        print(f"{tag} make_coset_lde_sharded at {widest.air.name}'s "
+              f"{tuple(vals.shape)} (0x1303's largest chip) == coset_lde: "
+              f"{ms:.2f} ms against {local_ms:.2f} ms on one device; "
+              f"(a) {time.perf_counter() - t0:.1f} s")
+        del x, vals
+
+        # (b) the 0x1303 session proved over the mesh's devices, beside a
+        # one-device prove of the same chips
+        t0 = time.perf_counter()
+        runs = {}
+        for label, kw in (("one device", {"device": dev}),
+                          ("the mesh's devices",
+                           {"devices": devices, "mesh": mesh})):
+            for d in set(devices):
+                torch.cuda.reset_peak_memory_stats(d)
+            timings: dict = {}
+            k1.reset_launches()
+            p2.plain_calls = 0
+            t1 = time.perf_counter()
+            blob = prove_machine(chips, journal, DEFAULT_CONFIG,
+                                 timings=timings, **kw).to_bytes()
+            sync_all()
+            runs[label] = (time.perf_counter() - t1, timings, blob,
+                           dict(k1.launches), p2.plain_calls,
+                           max(torch.cuda.max_memory_allocated(d)
+                               for d in set(devices)) / 2**30)
+        for label, (prove_s, timings, blob, got, plain, peak) in \
+                runs.items():
+            _require(plain == 0, f"{tag} the {label} prove ran the plain "
+                     "Poseidon2")
+            _require(hashlib.sha256(blob).hexdigest()
+                     == SESSION_PROOF_SHA256["1303"],
+                     f"{tag} the {label} proof is not the session's")
+            print(f"{tag} 0x1303 prove_machine on {label}: {prove_s:.2f} s ("
+                  + ", ".join(f"{k} {timings[k]:.3f}" for k in STAGES)
+                  + f"), peak device memory {peak:.2f} GiB, K1 launches "
+                  f"{got}; sha256 == SESSION_PROOF_SHA256['1303']")
+        launches = runs["the mesh's devices"][3]
+        for entry in ("hash_rows", "merkle_levels"):
+            _require(launches[entry] > 0, f"{tag} the multi-device prove "
+                     f"launched {entry} no time")
+        blob = runs["the mesh's devices"][2]
+        _require(StarkGuestProver().verify(journal, blob),
+                 f"{tag} StarkGuestProver rejected the proof")
+        bad, pos = _tamper_filtered(journal)
+        try:
+            StarkGuestProver().verify(bad, blob)
+        except VerificationError as e:
+            print(f"{tag} verify ok; journal with filtered byte {pos} "
+                  f"changed rejected ({e}); (b) "
+                  f"{time.perf_counter() - t0:.1f} s")
+        else:
+            raise RuntimeError(f"{tag} the proof verified against a "
+                               "tampered journal")
+
+        # (c) the segment step of the reference's dryrun_multichip: one
+        # LDE and leaf hash per segment on its seg device
+        t0 = time.perf_counter()
+        seg_devs = mesh.axis_devices("seg")
+        n_segs = 2 * len(seg_devs)
+        segs = [rand_field(1 << 15, 639) for _ in range(n_segs)]
+        leaves = [mk.hash_rows(ntt_mod.coset_lde(
+            t.to(seg_devs[i * len(seg_devs) // n_segs]), 1, 31))
+            for i, t in enumerate(segs)]
+        sync_all()
+        for t, got in zip(segs, leaves):
+            _require(torch.equal(got.to(dev),
+                                 mk.hash_rows(ntt_mod.coset_lde(t, 1, 31))),
+                     f"{tag} a segment's leaves differ from one device's")
+        print(f"{tag} {n_segs} segments of (32768, 639) over "
+              f"{[str(d) for d in seg_devs]}: LDE + hash_rows leaves == "
+              f"one device's; (c) {time.perf_counter() - t0:.1f} s; total "
+              f"{time.perf_counter() - t_path:.1f} s")
+        return launches
+
     launches_by_path = {}
     if "sha" in paths:
         launches_by_path.update(sha_path())
@@ -1506,6 +1665,9 @@ def main() -> int:
     # 14. the prover's alternative device paths
     if "paths" in paths:
         launches_by_path["paths"] = paths_path()
+    # 15. several devices
+    if "parallel" in paths:
+        launches_by_path["parallel"] = parallel_path()
     if args.only is not None:
         print(f"--only {','.join(paths)}: done in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -1514,7 +1676,7 @@ def main() -> int:
                 **{k: launches_by_path["compress"][k]
                    for k in ("hash_rows", "merkle_levels")}}
 
-    # 15. kernels (launches: the compress's; permute: the grinding path's)
+    # 16. kernels (launches: the compress's; permute: the grinding path's)
     print(json.dumps({"kernels": [{
         "name": f"poseidon2_{name}",
         "route": "cuda",
@@ -1531,7 +1693,7 @@ def main() -> int:
         "bound_by": b["bound_by"],
         "library_ms": None,
     } for name, (_, ms, plain_ms, b) in timed.items()]}))
-    # 16. result
+    # 17. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

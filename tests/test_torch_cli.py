@@ -362,9 +362,10 @@ def test_native_and_batch_path_without_jax_or_cryptography():
     """The host Poseidon2, MiMC and MSM libraries (one MSM of 64 points
     through C), the batch path (two sessions' replays,
     merge_guest_outputs, build_chip_instances, batch_public_messages), the
-    compress and shrink rungs' modules and the Groth16 layer's (snark/,
-    verifier_export) in a process of their own import no module of jax,
-    zktls_tpu or cryptography."""
+    compress and shrink rungs' modules, the Groth16 layer's (snark/,
+    verifier_export), the RV32IM executor (routez/) and the multi-device
+    modules (parallel/, one sharded NTT on two CPU shards) in a process of
+    their own import no module of jax, zktls_tpu or cryptography."""
     code = (
         "import sys\n"
         "from zktls_tpu_torch.ops.poseidon2 import Poseidon2\n"
@@ -375,6 +376,13 @@ def test_native_and_batch_path_without_jax_or_cryptography():
         "from zktls_tpu_torch.snark import bn254, groth16, r1cs, "
         "stark_wrap\n"
         "from zktls_tpu_torch import verifier_export\n"
+        "from zktls_tpu_torch import routez\n"
+        "from zktls_tpu_torch.parallel import mesh, ntt as pntt\n"
+        "from zktls_tpu_torch.ops.ntt import ntt\n"
+        "import torch\n"
+        "x = torch.arange(1, 17, dtype=torch.int64)\n"
+        "assert torch.equal(pntt.ntt_sharded(x, mesh.make_mesh("
+        "1, 2, ['cpu'] * 2)), ntt(x))\n"
         "pts = bn254.g1_base_mul_batch(list(range(1, 65)))\n"
         "assert bn254.msm_g1(pts, [1] * 64) == "
         "bn254.g1_mul(bn254.G1, 64 * 65 // 2)\n"

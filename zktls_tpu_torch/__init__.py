@@ -15,7 +15,16 @@ an obvious counterpart:
              machine prover/verifier, the recursion rungs (`recursion.py`:
              compress and shrink) and the shrink's BN254/MiMC-committed
              machine (`machine_bn.py`, `commit_bn.py`)
-  snark/     the MP-MiMC hash over the BN254 scalar field
+  parallel/  several devices in one process: the ('seg', 'ntt') mesh
+             (`mesh.make_mesh`) and the four-step NTT / coset LDE sharded
+             over a mesh axis (`ntt.ntt_sharded`,
+             `ntt.make_coset_lde_sharded`), used by
+             `prove_machine(devices=, mesh=)`; `devices=["cpu"] * k` runs
+             it on the CPU as k logical shards
+  routez/    the RV32IM executor (ELF32 loader, interpreter with cycle and
+             segment counts): host Python, no device
+  snark/     the Groth16 layer: BN254 curve and pairing, R1CS, Groth16,
+             the STARK-verifier and journal circuits, MP-MiMC
   utils/     the host Poseidon2 and MiMC in C (csrc/*_host.c), built at
              first use
   stark/chips/, models/

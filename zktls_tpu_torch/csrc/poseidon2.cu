@@ -379,11 +379,27 @@ poseidon2_merkle_kernel(long long* __restrict__ buf, long long n_leaves,
 
 extern "C" {
 
+// Selects `device` for one entry point and gives the caller's current
+// device back when the entry point returns: the caller (torch) keeps its
+// own current device, and a launch on another card must not move it.
+struct DeviceScope {
+  int prev = -1;
+  cudaError_t err;
+  explicit DeviceScope(int device) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess) err = cudaSetDevice(device);
+  }
+  ~DeviceScope() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 // Copy one width's Montgomery-form constants into __constant__ memory of
 // `device`: erc (8, width) row-major, irc (rp,), diag (width,).
 int zk_poseidon2_set_constants(int device, int width, const uint32_t* erc,
                                const uint32_t* irc, const uint32_t* diag) {
-  cudaError_t e = cudaSetDevice(device);
+  DeviceScope scope(device);
+  cudaError_t e = scope.err;
   if (e != cudaSuccess) return (int)e;
   if (width == 16) {
     if ((e = cudaMemcpyToSymbol(c_erc16, erc, sizeof(c_erc16))) != cudaSuccess) return (int)e;
@@ -404,7 +420,8 @@ int zk_poseidon2_set_constants(int device, int width, const uint32_t* erc,
 // cudaGetLastError() of the launch (0 on success).
 int zk_poseidon2_permute(int device, int width, const uint32_t* in,
                          uint32_t* out, long long n, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+  DeviceScope scope(device);
+  cudaError_t e = scope.err;
   if (e != cudaSuccess) return (int)e;
   if (n <= 0) return 0;
   const int threads = 256;
@@ -424,7 +441,8 @@ int zk_poseidon2_permute(int device, int width, const uint32_t* in,
 // of values < p, out an (n, 8) int64 matrix, 16-byte aligned.  One launch.
 int zk_poseidon2_hash_rows(int device, const long long* rows, long long n,
                            int w, long long* out, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+  DeviceScope scope(device);
+  cudaError_t e = scope.err;
   if (e != cudaSuccess) return (int)e;
   if (n <= 0) return 0;
   const int threads = 128;
@@ -440,7 +458,8 @@ int zk_poseidon2_hash_rows(int device, const long long* rows, long long n,
 int zk_poseidon2_merkle_levels(int device, long long* buf, long long n,
                                void* stream, int* launches) {
   *launches = 0;
-  cudaError_t e = cudaSetDevice(device);
+  DeviceScope scope(device);
+  cudaError_t e = scope.err;
   if (e != cudaSuccess) return (int)e;
   if (n < 1 || (n & (n - 1))) return (int)cudaErrorInvalidValue;
   int level = 0;

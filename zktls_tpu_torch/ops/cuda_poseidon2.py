@@ -10,8 +10,10 @@
 
 The library is built at first use with nvcc for sm_90a into build/kernels/
 (keyed by the source's hash), loaded with ctypes and launched on torch's
-current stream.  What bounds the kernels and how their design answers
-that is noted at the top of the source.
+current stream of the tensor's card; each C entry point selects that card
+and gives the caller's current device back, so a launch on a second card
+leaves torch's current device as it was.  What bounds the kernels and how
+their design answers that is noted at the top of the source.
 
 Nothing here falls back: a tensor a kernel does not take raises.  The
 plain torch versions of the same functions are

@@ -126,17 +126,32 @@ class MerkleTree:
     level[0] = leaf digests (natural row order), level[k] halves
     level[k-1] by compressing adjacent pairs (2i, 2i+1).  All levels are
     built in one buffer and pulled to the host (plain form) in one copy,
-    so root and open() cost no device round trips."""
+    so root and open() cost no device round trips.
 
-    def __init__(self, rows: torch.Tensor):
+    defer=True only enqueues the device work: the copy to the host (which
+    waits for the device) happens at the first read of `levels_np`, `root`
+    or `open()`, so trees on several devices can be built at once."""
+
+    def __init__(self, rows: torch.Tensor, defer: bool = False):
         n = rows.shape[0]
         if n & (n - 1):
             raise ValueError("leaf count must be a power of two")
-        buf = tree_levels(hash_rows(rows))
-        # out of Montgomery form where the tree is, in row blocks beside a
-        # 2^26-leaf tree
-        nodes = bb.to_plain_numpy(buf, _HOST_ROWS)
-        self.levels_np = [nodes[a:b] for a, b in level_bounds(n)]
+        self._n = n
+        self._buf = tree_levels(hash_rows(rows))
+        self._levels = None
+        if not defer:
+            self.levels_np
+
+    @property
+    def levels_np(self) -> list[np.ndarray]:
+        """Every level, leaves first, as plain-form numpy (n_level, 8)."""
+        if self._levels is None:
+            # out of Montgomery form where the tree is, in row blocks
+            # beside a 2^26-leaf tree
+            nodes = bb.to_plain_numpy(self._buf, _HOST_ROWS)
+            self._levels = [nodes[a:b] for a, b in level_bounds(self._n)]
+            self._buf = None
+        return self._levels
 
     @property
     def root(self) -> np.ndarray:

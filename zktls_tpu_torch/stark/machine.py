@@ -1,22 +1,32 @@
 """The machine STARK: every chip of a workload proven in ONE proof.
 
-Port of zktls_tpu.stark.machine for one device.  The proof format, the
-transcript and every Fiat-Shamir observation are the reference's, so the
-port's `MachineProof.to_bytes()` equals the reference's byte for byte on
-the same input, and each package's verifier accepts the other's proofs.
+Port of zktls_tpu.stark.machine.  The proof format, the transcript and
+every Fiat-Shamir observation are the reference's, so the port's
+`MachineProof.to_bytes()` equals the reference's byte for byte on the same
+input, and each package's verifier accepts the other's proofs.
 
 Transcript order (prover/verifier mirror exactly):
   header(binding, chip names/sizes/publics[, preprocessed roots]) → trace
   roots → γ, δ → perm roots + bus sums → α → quotient roots → ζ → OOD
   evals → β → FRI roots/folds → final layer → grinding → query indices.
 
-Single-device features, all the reference's:
+Features, all the reference's:
   * preprocessed (fixed) columns: committed before the transcript starts,
     their root bound into the header and checked by the verifier against
     the root it is given (`preprocessed_root`, vk material);
-  * serial commits: each chip's tree and root are finished before the next
-    chip's LDE starts (`MerkleTree` builds synchronously), so the
-    reference's serial-commit guard holds with no option;
+  * serial commits on one device: each chip's tree and root are finished
+    before the next chip's LDE starts, so the reference's serial-commit
+    guard holds with no option;
+  * several devices (`devices=`, `mesh=`; parallel/): chips are placed
+    round-robin over the device list in machine order and every chip's
+    LDE and tree are dispatched before the first root is read, so the
+    devices work at once; with a mesh whose `ntt` axis has more than one
+    device, the chips of the largest height get their trace LDE as a
+    four-step sharded over that axis (parallel.ntt), gathered back to the
+    chip's device; host spill is off; each chip's DEEP term moves to the
+    first device, where FRI, grinding and the query draws run.  One
+    process drives every device (peer copies, no torch.distributed), and
+    a device may repeat in the list;
   * host spill (`spill_bytes=`): a chip whose committed extensions pass
     the limit keeps them on the host as int32 (pinned for a card) and
     streams row blocks back for the quotient, DEEP and the openings;
@@ -24,11 +34,10 @@ Single-device features, all the reference's:
     per source matrix and row block instead of over one concatenation.
   Every setting gives the same proof bytes.
 
-Not ported: several devices.  FRI is the host-driven fold loop
-(prover._fri_commit), which gives the same bytes as the reference's fused
-device program (its ZKTLS_FUSED_FRI); the quotient is the reference's
-default, the constraint VM (not its ZKTLS_QUOTIENT=xla direct
-evaluation).
+FRI is the host-driven fold loop (prover._fri_commit), which gives the
+same bytes as the reference's fused device program (its
+ZKTLS_FUSED_FRI); the quotient is the reference's default, the
+constraint VM (not its ZKTLS_QUOTIENT=xla direct evaluation).
 """
 
 from __future__ import annotations
@@ -336,25 +345,51 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
                   config: StarkConfig = DEFAULT_CONFIG, device=None,
                   timings: dict | None = None,
                   spill_bytes: float = SPILL_BYTES,
-                  chunked_deep_bytes: float = CHUNKED_DEEP_BYTES
-                  ) -> MachineProof:
+                  chunked_deep_bytes: float = CHUNKED_DEEP_BYTES,
+                  devices: list | None = None, mesh=None,
+                  ntt_axis: str = "ntt") -> MachineProof:
     """Prove `chips` as one machine STARK bound to `binding`.
 
     device: where the tensor work runs — the CUDA card by default (raises
     without one), "cpu" for the plain torch versions.  timings: if given,
-    receives the seconds of each stage in STAGES (the device is
+    receives the seconds of each stage in STAGES (every device used is
     synchronised at each stage boundary).  spill_bytes, chunked_deep_bytes:
     per-chip byte limits of host spill and chunked DEEP (module docstring;
     0 turns each on for every chip, `float("inf")` off); they change where
-    matrices live, never the proof bytes."""
-    dev = _resolve_device(device)
+    matrices live, never the proof bytes.
+
+    devices: a device list instead of `device` (not both): chips go
+    round-robin over it in machine order and FRI runs on devices[0].
+    mesh: a parallel.mesh.Mesh; when its `ntt_axis` has more than one
+    device, the largest chips' trace LDEs run sharded over that axis.
+    Either turns host spill off.  The proof bytes are the single-device
+    proof's for any device list and mesh."""
+    if devices is not None and device is not None:
+        raise ValueError("pass device= or devices=, not both")
+    if devices is not None and not devices:
+        raise ValueError("devices= must name at least one device")
+    devs = [_resolve_device(d) for d in (devices or [device])]
+    dev = devs[0]
+    lde_sharded = None
+    if devices is not None or mesh is not None:
+        spill_bytes = float("inf")
+    if mesh is not None and mesh.shape.get(ntt_axis, 1) > 1:
+        from ..parallel.ntt import make_coset_lde_sharded
+
+        lde_sharded = make_coset_lde_sharded(mesh, ntt_axis)
+    # with a device list every chip's tree is dispatched before the first
+    # root is read, which would otherwise hold the host on one device
+    # while the others idle
+    defer = len(devs) > 1
+    synced = {x for x in devs + (list(mesh.devices.flat) if mesh else [])
+              if x.type == "cuda"}
     t_last = [time.perf_counter()]
 
     def _mark(label):
         if timings is None:
             return
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for x in synced:
+            torch.cuda.synchronize(x)
         now = time.perf_counter()
         timings[label] = timings.get(label, 0.0) + now - t_last[0]
         t_last[0] = now
@@ -405,15 +440,20 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
 
     # 0. preprocessed commits — fixed columns, committed before the
     # transcript starts; their roots are vk material bound into the header
-    # (the verifier checks the openings against the roots it is given)
+    # (the verifier checks the openings against the roots it is given).
+    # Each chip's work runs on its device, round-robin in machine order.
     per = {}
-    for inst, log_n in metas:
-        d = per[inst.air.name] = {"log_n": log_n, "s": shifts[inst.air.name]}
+    for idx, (inst, log_n) in enumerate(metas):
+        d = per[inst.air.name] = {"log_n": log_n, "s": shifts[inst.air.name],
+                                  "dev": devs[idx % len(devs)]}
         if inst.preprocessed is not None:
-            pre_m = _mont(inst.preprocessed, dev)
+            pre_m = _mont(inst.preprocessed, d["dev"])
             d["pre_m"] = pre_m
             d["pre_lde"] = coset_lde(pre_m, config.log_blowup, d["s"])
-            d["pre_tree"] = MerkleTree(d["pre_lde"])
+            d["pre_tree"] = MerkleTree(d["pre_lde"], defer=defer)
+    for inst, log_n in metas:
+        d = per[inst.air.name]
+        if "pre_tree" in d:
             d["pre_root"] = [int(x) for x in d["pre_tree"].root]
 
     ch = Challenger()
@@ -423,19 +463,22 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
           per[inst.air.name].get("pre_root"))
          for inst, log_n in metas])
 
-    # 1. main-trace commits; each chip's tree and root are done before the
-    # next chip's LDE (serial commits)
+    # 1. main-trace commits; on one device each chip's tree and root are
+    # done before the next chip's LDE (serial commits)
     for inst, log_n in metas:
         d = per[inst.air.name]
-        trace_m = _mont(inst.trace, dev)
-        lde = coset_lde(trace_m, config.log_blowup, d["s"])
-        tree = MerkleTree(lde)
-        d.update(trace_m=trace_m, lde=lde, trace_tree=tree,
-                 trace_root=[int(x) for x in tree.root])
+        trace_m = _mont(inst.trace, d["dev"])
+        if lde_sharded is not None and log_n == metas[0][1]:
+            lde = lde_sharded(trace_m, config.log_blowup, d["s"])
+        else:
+            lde = coset_lde(trace_m, config.log_blowup, d["s"])
+        d.update(trace_m=trace_m, lde=lde,
+                 trace_tree=MerkleTree(lde, defer=defer))
     for inst, log_n in metas:
         d = per[inst.air.name]
+        d["trace_root"] = [int(x) for x in d["trace_tree"].root]
         ch.observe_many(d["trace_root"])
-        _spill(d, ("lde", "pre_lde"), spill_bytes, dev)
+        _spill(d, ("lde", "pre_lde"), spill_bytes, d["dev"])
     _mark("lde_commit")
 
     # 2. machine challenges + perm commits + bus sums
@@ -452,28 +495,28 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
                 **kw)
             if perm_np.shape != (n, air.perm_width):
                 raise ValueError(f"{air.name}: bad perm trace shape")
-            perm_m = _mont(perm_np, dev)
+            perm_m = _mont(perm_np, d["dev"])
             perm_lde = coset_lde(perm_m, config.log_blowup, d["s"])
-            perm_tree = MerkleTree(perm_lde)
+            perm_tree = MerkleTree(perm_lde, defer=defer)
             # the accumulator is the LAST extension element of the perm
             # trace; its final row is the chip's cumulative bus sum
             bus_sum = ([int(v) for v in perm_np[-1, -4:]]
                        if getattr(air, "has_bus", False) else [0, 0, 0, 0])
-            perm_root = [int(x) for x in perm_tree.root]
         else:
-            perm_m = torch.zeros((n, 0), dtype=bb.DTYPE, device=dev)
+            perm_m = torch.zeros((n, 0), dtype=bb.DTYPE, device=d["dev"])
             perm_lde = torch.zeros((n << config.log_blowup, 0),
-                                   dtype=bb.DTYPE, device=dev)
-            perm_tree = perm_root = None
+                                   dtype=bb.DTYPE, device=d["dev"])
+            perm_tree = None
             bus_sum = [0, 0, 0, 0]
         d.update(perm_m=perm_m, perm_lde=perm_lde, perm_tree=perm_tree,
-                 perm_root=perm_root, bus_sum=bus_sum)
+                 perm_root=None, bus_sum=bus_sum)
     for inst, log_n in metas:
         d = per[inst.air.name]
         if inst.air.perm_width:
+            d["perm_root"] = [int(x) for x in d["perm_tree"].root]
             ch.observe_many(d["perm_root"])
             ch.observe_many(d["bus_sum"])
-        _spill(d, ("lde", "pre_lde", "perm_lde"), spill_bytes, dev)
+        _spill(d, ("lde", "pre_lde", "perm_lde"), spill_bytes, d["dev"])
     _mark("perm_commit")
 
     # 3. quotients
@@ -490,20 +533,20 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
         apow = np_ext_powers(alpha, max(n_constraints, 1)).astype(np.uint32)
 
         sels_np = selector_arrays(log_n, config.log_blowup, s_i)
-        sels_m = {k: _mont(sels_np[k], dev)
+        sels_m = {k: _mont(sels_np[k], d["dev"])
                   for k in ("is_first_row", "is_last_row", "is_transition")}
-        inv_zh_m = _mont(sels_np["inv_z_h"], dev)
+        inv_zh_m = _mont(sels_np["inv_z_h"], d["dev"])
         d["sels_np"] = sels_np
 
         periodic_cols = []
         for pattern in air.periodic_columns():
             s_m = pow(s_i, n // len(pattern), P)
             vals = coset_lde(_mont(np.asarray(pattern, dtype=np.uint32),
-                                   dev), config.log_blowup, s_m)
+                                   d["dev"]), config.log_blowup, s_m)
             periodic_cols.append(vals.repeat(N // vals.shape[0]))
         periodic_stack = (torch.stack(periodic_cols, dim=0) if periodic_cols
                           else torch.zeros((0, N), dtype=bb.DTYPE,
-                                           device=dev))
+                                           device=d["dev"]))
 
         quotient_vals = eval_quotient_vm(
             air, d["lde"], d["perm_lde"], challenges, publics_full, apow,
@@ -516,13 +559,14 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
         q_cols = torch.cat(
             [coeffs_to_coset_evals(c, config.log_blowup, s_i)
              for c in chunks], dim=1)
-        q_tree = MerkleTree(q_cols)
-        d.update(q_cols=q_cols, q_chunks=chunks, q_tree=q_tree,
-                 q_root=[int(x) for x in q_tree.root])
+        d.update(q_cols=q_cols, q_chunks=chunks,
+                 q_tree=MerkleTree(q_cols, defer=defer))
     for inst, log_n in metas:
         d = per[inst.air.name]
+        d["q_root"] = [int(x) for x in d["q_tree"].root]
         ch.observe_many(d["q_root"])
-        _spill(d, ("lde", "pre_lde", "perm_lde", "q_cols"), spill_bytes, dev)
+        _spill(d, ("lde", "pre_lde", "perm_lde", "q_cols"), spill_bytes,
+               d["dev"])
     _mark("quotient")
 
     # 4. out-of-domain openings
@@ -532,8 +576,8 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
         d = per[inst.air.name]
         n = 1 << log_n
         g_zeta = zeta * two_adic_root(log_n)
-        zpows = _zeta_powers(zeta, n, dev)
-        gzpows = _zeta_powers(g_zeta, n, dev)
+        zpows = _zeta_powers(zeta, n, d["dev"])
+        gzpows = _zeta_powers(g_zeta, n, d["dev"])
         evals_np = {}
         for key_l, key_n, src in (("tl", "tn", "trace_m"),
                                   ("pl", "pn", "perm_m"),
@@ -579,18 +623,19 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
         d = per[inst.air.name]
         log_N = log_n + config.log_blowup
         N = 1 << log_N
-        x_ext = ex.ext_from_base(_mont(d["sels_np"]["x"], dev))
-        zeta_arr = bb.from_numpy(ex.from_fp4(zeta), dev).expand(N, 4)
-        gzeta_arr = bb.from_numpy(ex.from_fp4(d["g_zeta"]), dev).expand(N, 4)
+        cdev = d["dev"]
+        x_ext = ex.ext_from_base(_mont(d["sels_np"]["x"], cdev))
+        zeta_arr = bb.from_numpy(ex.from_fp4(zeta), cdev).expand(N, 4)
+        gzeta_arr = bb.from_numpy(ex.from_fp4(d["g_zeta"]), cdev).expand(N, 4)
         inv_x_zeta = ex.ext_inv(ex.ext_sub(x_ext, zeta_arr))
         inv_x_gzeta = ex.ext_inv(ex.ext_sub(x_ext, gzeta_arr))
-        env = {k: bb.from_numpy(bb.np_to_mont(v), dev)
+        env = {k: bb.from_numpy(bb.np_to_mont(v), cdev)
                for k, v in d["evals_np"].items()}
         bslice = bb.from_numpy(
             bpow_all[d["beta_off"] : d["beta_off"] + d["w_z"] + d["w_gz"]],
-            dev)
+            cdev)
         pre_lde = d.get("pre_lde",
-                        torch.zeros((N, 0), dtype=bb.DTYPE, device=dev))
+                        torch.zeros((N, 0), dtype=bb.DTYPE, device=cdev))
         srcs = [(d["lde"], "tl", "tn"), (pre_lde, "el", "en"),
                 (d["perm_lde"], "pl", "pn")]
         if d.get("spilled") or \
@@ -609,6 +654,8 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
             deep = _deep_fn(mat_z, mat_gz, bslice, ev_z, ev_gz, inv_x_zeta,
                             inv_x_gzeta)
             del mat_z, mat_gz
+        # the sums and FRI run on the first device
+        deep = deep.to(dev)
         if log_N in deep_by_log:
             deep_by_log[log_N] = ex.ext_add(deep_by_log[log_N], deep)
         else:
