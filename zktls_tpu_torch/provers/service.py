@@ -21,12 +21,21 @@ convention, SURVEY.md §2.3):
 
 The server URL is an argument (`RemoteGuestProver(server)`, the CLI's
 `--server`); the port reads no environment variable for it.
+
+Proves run one at a time, whatever the backend: a service fronts one
+card, and the mock backend, which stands in for the card's prover in tests,
+queues its requests the same way.  Each POST gets a request id (1, 2, …
+per service); the service logs one INFO line per prove request that
+reaches the prover, failed or not: `request <id>: waited <s> s, proved
+<s> s`.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.request import Request as UrlRequest, urlopen
 
@@ -66,6 +75,7 @@ def _make_handler(service: "ProverService"):
             if self.path != "/v1/prove":
                 self._reply(404, {"error": f"no route {self.path}"})
                 return
+            rid = next(service.request_ids)
             length = int(self.headers.get("Content-Length", "0"))
             if length <= 0 or length > _MAX_BODY:
                 # the body was never read: drop the connection rather than
@@ -80,7 +90,7 @@ def _make_handler(service: "ProverService"):
                 self._reply(400, {"error": f"bad GuestInput CBOR: {e}"})
                 return
             try:
-                journal, proof = service.prover.prove(guest_input)
+                journal, proof = service.prove(rid, guest_input)
             except Exception as e:  # mirror upstream print-not-propagate
                 log.exception("prove failed")
                 self._reply(500, {"error": str(e)})
@@ -94,14 +104,31 @@ class ProverService:
     """An HTTP prover service wrapping any ZkProver.  `start()` runs the
     server on a daemon thread (tests / embedding); `serve_forever()` blocks
     (the CLI `serve` command).  prover_name: what health reports (the
-    prover's class name when None)."""
+    prover's class name when None).  Proves run one at a time, for every
+    backend (the module's docstring says why)."""
 
     def __init__(self, prover, host: str = "127.0.0.1", port: int = 0,
                  prover_name: str | None = None):
         self.prover = prover
         self.prover_name = prover_name or type(prover).__name__
+        self.request_ids = itertools.count(1)
+        self._prove_lock = threading.Lock()
         self._httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self._thread: threading.Thread | None = None
+
+    def prove(self, rid: int, guest_input: GuestInput
+              ) -> tuple[bytes, bytes]:
+        """Request `rid`'s prove, once the prover is free; logs the
+        request's seconds waited and proved."""
+        t0 = time.perf_counter()
+        self._prove_lock.acquire()
+        t1 = time.perf_counter()
+        try:
+            return self.prover.prove(guest_input)
+        finally:
+            self._prove_lock.release()
+            log.info("request %d: waited %.3f s, proved %.3f s", rid,
+                     t1 - t0, time.perf_counter() - t1)
 
     @property
     def url(self) -> str:
@@ -167,19 +194,17 @@ class _StarkOnFirstProve:
     """`StarkGuestProver()`, built at the first prove request and kept: a
     service starts on a host without a card and answers each prove there
     with the prover's "no CUDA device" error (500), never on the CPU.
-    Proves run one at a time."""
+    Its service calls it one request at a time."""
 
     def __init__(self):
         self._prover = None
-        self._lock = threading.Lock()
 
     def prove(self, guest_input: GuestInput) -> tuple[bytes, bytes]:
-        with self._lock:
-            if self._prover is None:
-                from .stark import StarkGuestProver
+        if self._prover is None:
+            from .stark import StarkGuestProver
 
-                self._prover = StarkGuestProver()
-            return self._prover.prove(guest_input)
+            self._prover = StarkGuestProver()
+        return self._prover.prove(guest_input)
 
 
 def serve(prover_kind: str, host: str, port: int) -> ProverService:

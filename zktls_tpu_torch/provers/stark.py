@@ -57,6 +57,7 @@ from ..stark.machine import (
     prove_machine,
     verify_machine,
 )
+from ..utils.spans import Stages, span
 
 __all__ = ["StarkGuestProver", "build_chip_instances",
            "journal_public_messages", "journal_airs", "merge_guest_outputs",
@@ -137,19 +138,23 @@ def _stream_chips(out, events, data_air, ks_xor_pairs: list,
     if sessions is None:
         sessions = [parser_sessions_from_replay(out.stream, events, out.v13,
                                                 obj=1)]
-    ptrace, _ = parser_trace(sessions)
+    with span("zktls.build:StreamParserAir"):
+        ptrace, _ = parser_trace(sessions)
     filtered = getattr(out, "filtered_mults", None)
     if filtered is None:
         filtered = _filtered_multiplicities(out.journal, obj=1)
-    dtrace, _, xor_pairs = gcm_data_trace(
-        out.gcm_metas, events, filtered=filtered, le_pairs=le_pairs)
-    xtrace, _ = xor_table_trace(
-        xor_use_counts(list(xor_pairs) + ks_xor_pairs))
+    with span(f"zktls.build:{data_air.name}"):
+        dtrace, _, xor_pairs = gcm_data_trace(
+            out.gcm_metas, events, filtered=filtered, le_pairs=le_pairs)
+    with span("zktls.build:XorTableAir"):
+        xtrace, _ = xor_table_trace(
+            xor_use_counts(list(xor_pairs) + ks_xor_pairs))
     streams = getattr(out, "keccak_streams", None)
     if streams is None:
         streams = [(1, 0, out.replay.request_plaintext),
                    (1, 1, out.replay.response_plaintext)]
-    ktrace, _ = keccak_trace(streams)
+    with span("zktls.build:KeccakAir"):
+        ktrace, _ = keccak_trace(streams)
     return [ChipInstance(air=StreamParserAir(), trace=ptrace, publics=[]),
             ChipInstance(air=data_air, trace=dtrace, publics=[]),
             ChipInstance(air=XorTableAir(), trace=xtrace, publics=[]),
@@ -193,23 +198,30 @@ def build_chip_instances(out) -> list[ChipInstance]:
     hop_counts: dict = {}
     ks_xor_pairs: list = []
     if ks_sessions:
-        ks_trace, hop_counts, ks_xor_pairs = keyschedule_trace(ks_sessions)
+        with span("zktls.build:KeyScheduleAir"):
+            ks_trace, hop_counts, ks_xor_pairs = keyschedule_trace(
+                ks_sessions)
 
-    chips = [sha256_instance(out.replay.sha256_recorder.events,
-                             hop_counts=hop_counts)]
+    with span("zktls.build:Sha256Air"):
+        chips = [sha256_instance(out.replay.sha256_recorder.events,
+                                 hop_counts=hop_counts)]
     rec512 = getattr(out.replay, "sha512_recorder", None)
     if rec512 is not None and rec512.events:
         # SHA-384 suites: transcript/PRF/HKDF compressions on the SHA-512
         # chip (IV-rooted chains)
-        trace512, p512 = sha512_trace(rec512.events)
+        with span("zktls.build:Sha512Air"):
+            trace512, p512 = sha512_trace(rec512.events)
         chips.append(ChipInstance(air=Sha512Air(), trace=trace512,
                                   publics=p512))
     if out.replay.gcm_events:
         events = out.replay.gcm_events
-        chips.extend(aes_instances(events))
-        chips.append(ghash_instance(events))
-        chips.append(gcm_control_instance(events, metas=out.gcm_metas,
-                                          v13=out.v13))
+        with span("zktls.build:Aes128Air"):
+            chips.extend(aes_instances(events))
+        with span("zktls.build:GhashAir"):
+            chips.append(ghash_instance(events))
+        with span("zktls.build:GcmControlAir"):
+            chips.append(gcm_control_instance(events, metas=out.gcm_metas,
+                                              v13=out.v13))
         chips.extend(_stream_chips(out, events, GcmDataAir(), ks_xor_pairs))
     chacha_events = getattr(out.replay, "chacha_events", None)
     cc_sends: dict = {}
@@ -223,14 +235,16 @@ def build_chip_instances(out) -> list[ChipInstance]:
         # ModMul chip) is composed into the in-circuit tag check
         consumed: dict = {}
         if out.gcm_metas and not out.replay.gcm_events:
-            ctl_trace, _, cc_sends, consumed = chacha_control_trace(
-                chacha_events, out.gcm_metas)
+            with span("zktls.build:ChaChaControlAir"):
+                ctl_trace, _, cc_sends, consumed = chacha_control_trace(
+                    chacha_events, out.gcm_metas)
             chips.append(ChipInstance(air=ChaChaControlAir(),
                                       trace=ctl_trace, publics=[]))
             chips.extend(_stream_chips(out, chacha_events, ChaChaDataAir(),
                                        ks_xor_pairs, le_pairs=1))
-        ctrace, cpub = chacha_trace(chacha_event_blocks(chacha_events),
-                                    consumed=consumed)
+        with span("zktls.build:ChaCha20Air"):
+            ctrace, cpub = chacha_trace(chacha_event_blocks(chacha_events),
+                                        consumed=consumed)
         chips.append(ChipInstance(air=ChaCha20Air(), trace=ctrace,
                                   publics=cpub))
     # EC schedule: the ECDHE d·G / d·S dual ladder proven over the
@@ -254,7 +268,8 @@ def build_chip_instances(out) -> list[ChipInstance]:
                               mres2=1 if rid2 in ks_linked else 0))
     sends: dict = {}
     if jobs:
-        etrace, sends = ec_schedule_trace(jobs)
+        with span("zktls.build:EcScheduleAir"):
+            etrace, sends = ec_schedule_trace(jobs)
         chips.append(ChipInstance(air=EcScheduleAir(), trace=etrace,
                                   publics=[]))
     # Poly1305 accumulator statements consumed by the ChaCha control chip
@@ -264,7 +279,8 @@ def build_chip_instances(out) -> list[ChipInstance]:
         chips.append(ChipInstance(air=KeyScheduleAir(), trace=ks_trace,
                                   publics=[]))
     if out.modmul_events:
-        chips.extend(modmul_instances(out.modmul_events, sends=sends))
+        with span("zktls.build:ModMulAir"):
+            chips.extend(modmul_instances(out.modmul_events, sends=sends))
     return chips
 
 
@@ -532,17 +548,16 @@ class StarkGuestProver:
         """(journal, proof bytes).  timings: if given, receives the seconds
         of `run_guest` and `build_chip_instances` (host) besides
         prove_machine's stages."""
-        t0 = time.perf_counter()
-        out: GuestOutput = run_guest(guest_input)
-        t1 = time.perf_counter()
-        chips = build_chip_instances(out)
-        if timings is not None:
-            timings["run_guest"] = t1 - t0
-            timings["build_chip_instances"] = time.perf_counter() - t1
+        with Stages(timings, "run_guest") as stages:
+            out: GuestOutput = run_guest(guest_input)
+            stages.next("build_chip_instances")
+            chips = build_chip_instances(out)
         proof = prove_machine(chips, binding=out.journal,
                               config=self.config, device=self.device,
                               timings=timings)
-        return out.journal, proof.to_bytes()
+        with span("zktls.encode_proof"):
+            blob = proof.to_bytes()
+        return out.journal, blob
 
     def verify(self, journal: bytes, proof: bytes) -> bool:
         """Raises stark.verifier.VerificationError on failure."""
@@ -740,17 +755,16 @@ class StarkGuestProver:
         concatenation of all journals.  timings: if given, receives the
         seconds of `run_guest` (all sessions) and `build_chip_instances`
         (the merge included) besides prove_machine's stages."""
-        t0 = time.perf_counter()
-        outs = [run_guest(gi) for gi in guest_inputs]
-        t1 = time.perf_counter()
-        chips = build_chip_instances(merge_guest_outputs(outs))
-        if timings is not None:
-            timings["run_guest"] = t1 - t0
-            timings["build_chip_instances"] = time.perf_counter() - t1
+        with Stages(timings, "run_guest") as stages:
+            outs = [run_guest(gi) for gi in guest_inputs]
+            stages.next("build_chip_instances")
+            chips = build_chip_instances(merge_guest_outputs(outs))
         binding = b"".join(out.journal for out in outs)
         proof = prove_machine(chips, binding=binding, config=self.config,
                               device=self.device, timings=timings)
-        return [out.journal for out in outs], proof.to_bytes()
+        with span("zktls.encode_proof"):
+            blob = proof.to_bytes()
+        return [out.journal for out in outs], blob
 
     def verify_batch(self, journals: list[bytes], proof: bytes) -> bool:
         """Raises stark.verifier.VerificationError on failure."""

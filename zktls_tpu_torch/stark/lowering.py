@@ -30,6 +30,7 @@ import torch
 from ..ops import babybear as bb
 from ..ops import ext as ex
 from ..ops.field_ref import P, Fp4
+from ..utils.spans import span
 
 __all__ = ["lower_air", "eval_quotient_vm", "row_block", "Plan"]
 
@@ -597,8 +598,9 @@ def lower_air(air, n_public: int, n_challenges: int) -> Plan:
     key = (air.name, n_public, n_challenges)
     plan = _PLAN_CACHE.get(key)
     if plan is None:
-        ctx, folds = _trace_air(air, n_public, n_challenges)
-        plan = _build_plan(ctx, folds)
+        with span(f"zktls.lower_air:{air.name}"):
+            ctx, folds = _trace_air(air, n_public, n_challenges)
+            plan = _build_plan(ctx, folds)
         _PLAN_CACHE[key] = plan
     return plan
 

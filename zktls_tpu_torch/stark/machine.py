@@ -42,7 +42,6 @@ constraint VM (not its ZKTLS_QUOTIENT=xla direct evaluation).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -54,6 +53,7 @@ from ..ops import ext as ex
 from ..ops.field_ref import Fp4, P, two_adic_root
 from ..ops.merkle import MerkleTree, hash_row_ints, verify_path
 from ..ops.ntt import coeffs_to_coset_evals, coset_coeffs, coset_lde, intt
+from ..utils.spans import Stages, span
 from .air import Air
 from .bus import MAX_PAYLOAD, bus_term, delta_powers
 from .challenger import Challenger
@@ -353,7 +353,9 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
     device: where the tensor work runs — the CUDA card by default (raises
     without one), "cpu" for the plain torch versions.  timings: if given,
     receives the seconds of each stage in STAGES (every device used is
-    synchronised at each stage boundary).  spill_bytes, chunked_deep_bytes:
+    synchronised at each stage boundary).  Under torch.profiler each
+    stage, perm trace and constraint-VM run is a named host span
+    (utils/spans.py).  spill_bytes, chunked_deep_bytes:
     per-chip byte limits of host spill and chunked DEEP (module docstring;
     0 turns each on for every chip, `float("inf")` off); they change where
     matrices live, never the proof bytes.
@@ -381,344 +383,340 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
     # root is read, which would otherwise hold the host on one device
     # while the others idle
     defer = len(devs) > 1
-    synced = {x for x in devs + (list(mesh.devices.flat) if mesh else [])
-              if x.type == "cuda"}
-    t_last = [time.perf_counter()]
-
-    def _mark(label):
-        if timings is None:
-            return
-        for x in synced:
-            torch.cuda.synchronize(x)
-        now = time.perf_counter()
-        timings[label] = timings.get(label, 0.0) + now - t_last[0]
-        t_last[0] = now
-
     if not chips:
         raise ValueError("machine proof needs at least one chip")
     names = [c.air.name for c in chips]
     if len(set(names)) != len(names):
         raise ValueError("duplicate chip names in machine proof")
 
-    # per-chip geometry
-    metas = []
-    for inst in chips:
-        n, w = inst.trace.shape
-        log_n = n.bit_length() - 1
-        if 1 << log_n != n:
-            raise ValueError("trace height must be a power of two")
-        if w != inst.air.width:
-            raise ValueError(
-                f"{inst.air.name}: trace width {w} != air width "
-                f"{inst.air.width}")
-        if inst.air.max_constraint_degree + 1 > config.blowup:
-            raise ValueError(f"{inst.air.name}: constraint degree too high")
-        pre_w = getattr(inst.air, "preprocessed_width", 0)
-        if pre_w:
-            if inst.preprocessed is None or \
-                    inst.preprocessed.shape != (n, pre_w):
+    with Stages(timings, "lde_commit",
+                set(devs + (list(mesh.devices.flat) if mesh else []))
+                ) as stages:
+        # per-chip geometry
+        metas = []
+        for inst in chips:
+            n, w = inst.trace.shape
+            log_n = n.bit_length() - 1
+            if 1 << log_n != n:
+                raise ValueError("trace height must be a power of two")
+            if w != inst.air.width:
                 raise ValueError(
-                    f"{inst.air.name}: preprocessed trace must be "
-                    f"({n}, {pre_w})")
-        elif inst.preprocessed is not None:
+                    f"{inst.air.name}: trace width {w} != air width "
+                    f"{inst.air.width}")
+            if inst.air.max_constraint_degree + 1 > config.blowup:
+                raise ValueError(
+                    f"{inst.air.name}: constraint degree too high")
+            pre_w = getattr(inst.air, "preprocessed_width", 0)
+            if pre_w:
+                if inst.preprocessed is None or \
+                        inst.preprocessed.shape != (n, pre_w):
+                    raise ValueError(
+                        f"{inst.air.name}: preprocessed trace must be "
+                        f"({n}, {pre_w})")
+            elif inst.preprocessed is not None:
+                raise ValueError(
+                    f"{inst.air.name}: unexpected preprocessed trace")
+            metas.append((inst, log_n))
+        metas = _machine_order(metas, lambda m: m[1], lambda m: m[0].air.name)
+        log_N_max = metas[0][1] + config.log_blowup
+        if (1 << (metas[-1][1] + config.log_blowup)) <= config.fri_final_size:
             raise ValueError(
-                f"{inst.air.name}: unexpected preprocessed trace")
-        metas.append((inst, log_n))
-    metas = _machine_order(metas, lambda m: m[1], lambda m: m[0].air.name)
-    log_N_max = metas[0][1] + config.log_blowup
-    if (1 << (metas[-1][1] + config.log_blowup)) <= config.fri_final_size:
-        raise ValueError(
-            "smallest chip domain must exceed fri_final_size; lower "
-            "fri_final_size or raise the chip's min trace height")
+                "smallest chip domain must exceed fri_final_size; lower "
+                "fri_final_size or raise the chip's min trace height")
 
-    # per-chip coset shift: s^(2^k) so the chip's domain coincides with the
-    # FRI layer of matching size
-    shifts = {}
-    for inst, log_n in metas:
-        k = log_N_max - (log_n + config.log_blowup)
-        shifts[inst.air.name] = pow(config.shift, 1 << k, P)
+        # per-chip coset shift: s^(2^k) so the chip's domain coincides with the
+        # FRI layer of matching size
+        shifts = {}
+        for inst, log_n in metas:
+            k = log_N_max - (log_n + config.log_blowup)
+            shifts[inst.air.name] = pow(config.shift, 1 << k, P)
 
-    # 0. preprocessed commits — fixed columns, committed before the
-    # transcript starts; their roots are vk material bound into the header
-    # (the verifier checks the openings against the roots it is given).
-    # Each chip's work runs on its device, round-robin in machine order.
-    per = {}
-    for idx, (inst, log_n) in enumerate(metas):
-        d = per[inst.air.name] = {"log_n": log_n, "s": shifts[inst.air.name],
-                                  "dev": devs[idx % len(devs)]}
-        if inst.preprocessed is not None:
-            pre_m = _mont(inst.preprocessed, d["dev"])
-            d["pre_m"] = pre_m
-            d["pre_lde"] = coset_lde(pre_m, config.log_blowup, d["s"])
-            d["pre_tree"] = MerkleTree(d["pre_lde"], defer=defer)
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        if "pre_tree" in d:
-            d["pre_root"] = [int(x) for x in d["pre_tree"].root]
-
-    ch = Challenger()
-    _observe_header(
-        ch, binding,
-        [(inst.air.name, log_n, [int(v) % P for v in inst.publics],
-          per[inst.air.name].get("pre_root"))
-         for inst, log_n in metas])
-
-    # 1. main-trace commits; on one device each chip's tree and root are
-    # done before the next chip's LDE (serial commits)
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        trace_m = _mont(inst.trace, d["dev"])
-        if lde_sharded is not None and log_n == metas[0][1]:
-            lde = lde_sharded(trace_m, config.log_blowup, d["s"])
-        else:
-            lde = coset_lde(trace_m, config.log_blowup, d["s"])
-        d.update(trace_m=trace_m, lde=lde,
-                 trace_tree=MerkleTree(lde, defer=defer))
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        d["trace_root"] = [int(x) for x in d["trace_tree"].root]
-        ch.observe_many(d["trace_root"])
-        _spill(d, ("lde", "pre_lde"), spill_bytes, d["dev"])
-    _mark("lde_commit")
-
-    # 2. machine challenges + perm commits + bus sums
-    challenges = _sample_challenges(ch)
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        air = inst.air
-        n = 1 << log_n
-        if air.perm_width:
-            kw = ({"preprocessed": inst.preprocessed}
-                  if inst.preprocessed is not None else {})
-            perm_np = air.generate_perm_trace(
-                inst.trace, [int(v) % P for v in inst.publics], challenges,
-                **kw)
-            if perm_np.shape != (n, air.perm_width):
-                raise ValueError(f"{air.name}: bad perm trace shape")
-            perm_m = _mont(perm_np, d["dev"])
-            perm_lde = coset_lde(perm_m, config.log_blowup, d["s"])
-            perm_tree = MerkleTree(perm_lde, defer=defer)
-            # the accumulator is the LAST extension element of the perm
-            # trace; its final row is the chip's cumulative bus sum
-            bus_sum = ([int(v) for v in perm_np[-1, -4:]]
-                       if getattr(air, "has_bus", False) else [0, 0, 0, 0])
-        else:
-            perm_m = torch.zeros((n, 0), dtype=bb.DTYPE, device=d["dev"])
-            perm_lde = torch.zeros((n << config.log_blowup, 0),
-                                   dtype=bb.DTYPE, device=d["dev"])
-            perm_tree = None
-            bus_sum = [0, 0, 0, 0]
-        d.update(perm_m=perm_m, perm_lde=perm_lde, perm_tree=perm_tree,
-                 perm_root=None, bus_sum=bus_sum)
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        if inst.air.perm_width:
-            d["perm_root"] = [int(x) for x in d["perm_tree"].root]
-            ch.observe_many(d["perm_root"])
-            ch.observe_many(d["bus_sum"])
-        _spill(d, ("lde", "pre_lde", "perm_lde"), spill_bytes, d["dev"])
-    _mark("perm_commit")
-
-    # 3. quotients
-    alpha = ch.sample_ext()
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        air = inst.air
-        n = 1 << log_n
-        N = n << config.log_blowup
-        s_i = d["s"]
-        publics_full = [int(v) % P for v in inst.publics] + d["bus_sum"]
-        n_constraints = lower_air(
-            air, len(publics_full), len(challenges)).n_constraints
-        apow = np_ext_powers(alpha, max(n_constraints, 1)).astype(np.uint32)
-
-        sels_np = selector_arrays(log_n, config.log_blowup, s_i)
-        sels_m = {k: _mont(sels_np[k], d["dev"])
-                  for k in ("is_first_row", "is_last_row", "is_transition")}
-        inv_zh_m = _mont(sels_np["inv_z_h"], d["dev"])
-        d["sels_np"] = sels_np
-
-        periodic_cols = []
-        for pattern in air.periodic_columns():
-            s_m = pow(s_i, n // len(pattern), P)
-            vals = coset_lde(_mont(np.asarray(pattern, dtype=np.uint32),
-                                   d["dev"]), config.log_blowup, s_m)
-            periodic_cols.append(vals.repeat(N // vals.shape[0]))
-        periodic_stack = (torch.stack(periodic_cols, dim=0) if periodic_cols
-                          else torch.zeros((0, N), dtype=bb.DTYPE,
-                                           device=d["dev"]))
-
-        quotient_vals = eval_quotient_vm(
-            air, d["lde"], d["perm_lde"], challenges, publics_full, apow,
-            sels_m, inv_zh_m, periodic_stack, config.log_blowup,
-            pre_lde=d.get("pre_lde"))
-
-        q_coeffs = coset_coeffs(quotient_vals, s_i)
-        chunks = [q_coeffs[k * n : (k + 1) * n]
-                  for k in range(config.blowup)]
-        q_cols = torch.cat(
-            [coeffs_to_coset_evals(c, config.log_blowup, s_i)
-             for c in chunks], dim=1)
-        d.update(q_cols=q_cols, q_chunks=chunks,
-                 q_tree=MerkleTree(q_cols, defer=defer))
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        d["q_root"] = [int(x) for x in d["q_tree"].root]
-        ch.observe_many(d["q_root"])
-        _spill(d, ("lde", "pre_lde", "perm_lde", "q_cols"), spill_bytes,
-               d["dev"])
-    _mark("quotient")
-
-    # 4. out-of-domain openings
-    zeta = ch.sample_ext()
-    empty = np.zeros((0, 4), dtype=np.uint32)
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        n = 1 << log_n
-        g_zeta = zeta * two_adic_root(log_n)
-        zpows = _zeta_powers(zeta, n, d["dev"])
-        gzpows = _zeta_powers(g_zeta, n, d["dev"])
-        evals_np = {}
-        for key_l, key_n, src in (("tl", "tn", "trace_m"),
-                                  ("pl", "pn", "perm_m"),
-                                  ("el", "en", "pre_m")):
-            if src in d and d[src].shape[1]:
-                coeffs = intt(d[src])
-                evals_np[key_l] = _ext_evals_at(coeffs, zpows)
-                evals_np[key_n] = _ext_evals_at(coeffs, gzpows)
-            else:
-                evals_np[key_l] = evals_np[key_n] = empty
-        evals_np["qe"] = np.concatenate(
-            [_ext_evals_at(c, zpows) for c in d["q_chunks"]], axis=0)
-        d["evals"] = {k: [Fp4(*[int(x) for x in row]) for row in arr]
-                      for k, arr in evals_np.items()}
-        d["evals_np"] = evals_np
-        d["g_zeta"] = g_zeta
-        for k in ("tl", "tn", "pl", "pn", "qe", "el", "en"):
-            for v in d["evals"][k]:
-                ch.observe_ext(v)
-        # free what later stages do not read
-        for k in ("trace_m", "perm_m", "pre_m", "q_chunks"):
-            d.pop(k, None)
-    _mark("ood_openings")
-
-    # 5. DEEP composition per chip, grouped by domain size.  β-power
-    # budget, per chip: ζ-group [trace ‖ pre ‖ perm ‖ quotient] then
-    # g·ζ-group [trace ‖ pre ‖ perm]
-    beta = ch.sample_ext()
-    total_terms = 0
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        w = (inst.air.width + getattr(inst.air, "preprocessed_width", 0)
-             + inst.air.perm_width)
-        d["w_z"] = w + int(d["q_cols"].shape[1])
-        d["w_gz"] = w
-        d["beta_off"] = total_terms
-        total_terms += d["w_z"] + d["w_gz"]
-    bpow_all = bb.np_to_mont(np_ext_powers(beta, total_terms).astype(
-        np.uint32))
-
-    deep_by_log: dict[int, torch.Tensor] = {}
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        log_N = log_n + config.log_blowup
-        N = 1 << log_N
-        cdev = d["dev"]
-        x_ext = ex.ext_from_base(_mont(d["sels_np"]["x"], cdev))
-        zeta_arr = bb.from_numpy(ex.from_fp4(zeta), cdev).expand(N, 4)
-        gzeta_arr = bb.from_numpy(ex.from_fp4(d["g_zeta"]), cdev).expand(N, 4)
-        inv_x_zeta = ex.ext_inv(ex.ext_sub(x_ext, zeta_arr))
-        inv_x_gzeta = ex.ext_inv(ex.ext_sub(x_ext, gzeta_arr))
-        env = {k: bb.from_numpy(bb.np_to_mont(v), cdev)
-               for k, v in d["evals_np"].items()}
-        bslice = bb.from_numpy(
-            bpow_all[d["beta_off"] : d["beta_off"] + d["w_z"] + d["w_gz"]],
-            cdev)
-        pre_lde = d.get("pre_lde",
-                        torch.zeros((N, 0), dtype=bb.DTYPE, device=cdev))
-        srcs = [(d["lde"], "tl", "tn"), (pre_lde, "el", "en"),
-                (d["perm_lde"], "pl", "pn")]
-        if d.get("spilled") or \
-                N * 8 * (d["w_z"] + d["w_gz"]) > chunked_deep_bytes:
-            deep = _deep_chunked(
-                [(m, env[z]) for m, z, _ in srcs]
-                + [(d["q_cols"], env["qe"])],
-                [(m, env[gz]) for m, _, gz in srcs],
-                bslice, d["w_z"], inv_x_zeta, inv_x_gzeta)
-        else:
-            mats = [m for m, _, _ in srcs]
-            mat_z = torch.cat(mats + [d["q_cols"]], dim=1)
-            mat_gz = torch.cat(mats, dim=1)
-            ev_z = torch.cat([env[z] for _, z, _ in srcs] + [env["qe"]])
-            ev_gz = torch.cat([env[gz] for _, _, gz in srcs])
-            deep = _deep_fn(mat_z, mat_gz, bslice, ev_z, ev_gz, inv_x_zeta,
-                            inv_x_gzeta)
-            del mat_z, mat_gz
-        # the sums and FRI run on the first device
-        deep = deep.to(dev)
-        if log_N in deep_by_log:
-            deep_by_log[log_N] = ex.ext_add(deep_by_log[log_N], deep)
-        else:
-            deep_by_log[log_N] = deep
-    _mark("deep")
-
-    # 6. mixed-height FRI (host-driven fold loop)
-    fri_roots, fri_trees, fri_layers, fri_final = _fri_commit(
-        ch, deep_by_log, config, log_N_max)
-    _mark("fri")
-
-    # 7. grinding + queries
-    pow_witness, q_indices = _grind_and_sample(ch, config, log_N_max, dev)
-
-    # gather queried rows per chip (index = q mod N_i), on the device that
-    # holds each matrix (the host for a spilled one)
-    rows_by_chip = {}
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        N_i = 1 << (log_n + config.log_blowup)
-        idx_np = np.array([q % N_i for q in q_indices], dtype=np.int64)
-
-        def _rows(mat):
-            idx = torch.from_numpy(idx_np).to(mat.device)
-            return bb.np_from_mont(bb.to_numpy(mat[idx]))
-
-        rows_by_chip[inst.air.name] = {
-            "idx": [int(j) for j in idx_np],
-            "trace": _rows(d["lde"]),
-            "quot": _rows(d["q_cols"]),
-            "perm": _rows(d["perm_lde"]) if inst.air.perm_width else None,
-            "pre": _rows(d["pre_lde"]) if "pre_lde" in d else None,
-        }
-
-    fri_steps = _fri_steps(fri_layers, fri_trees, q_indices, log_N_max)
-
-    def _opened(rows, tree, qi_pos, j):
-        if rows is None:
-            return [], []
-        return [int(x) for x in rows[qi_pos]], _open_path(tree, j)
-
-    queries = []
-    for qi_pos, q in enumerate(q_indices):
-        openings = []
+        # 0. preprocessed commits — fixed columns, committed before the
+        # transcript starts; their roots are vk material bound into the header
+        # (the verifier checks the openings against the roots it is given).
+        # Each chip's work runs on its device, round-robin in machine order.
+        per = {}
+        for idx, (inst, log_n) in enumerate(metas):
+            d = per[inst.air.name] = {"log_n": log_n,
+                                      "s": shifts[inst.air.name],
+                                      "dev": devs[idx % len(devs)]}
+            if inst.preprocessed is not None:
+                pre_m = _mont(inst.preprocessed, d["dev"])
+                d["pre_m"] = pre_m
+                d["pre_lde"] = coset_lde(pre_m, config.log_blowup, d["s"])
+                d["pre_tree"] = MerkleTree(d["pre_lde"], defer=defer)
         for inst, log_n in metas:
             d = per[inst.air.name]
-            rc = rows_by_chip[inst.air.name]
-            j = rc["idx"][qi_pos]
-            perm_row, perm_path = _opened(rc["perm"], d["perm_tree"],
-                                          qi_pos, j)
-            pre_row, pre_path = _opened(rc["pre"], d.get("pre_tree"),
-                                        qi_pos, j)
-            openings.append(ChipOpening(
-                trace_row=[int(x) for x in rc["trace"][qi_pos]],
-                trace_path=_open_path(d["trace_tree"], j),
-                quotient_row=[int(x) for x in rc["quot"][qi_pos]],
-                quotient_path=_open_path(d["q_tree"], j),
-                perm_row=perm_row, perm_path=perm_path,
-                pre_row=pre_row, pre_path=pre_path,
-            ))
-        queries.append(MachineQuery(index=q, openings=openings,
-                                    fri_steps=fri_steps[qi_pos]))
-    _mark("queries")
+            if "pre_tree" in d:
+                d["pre_root"] = [int(x) for x in d["pre_tree"].root]
+
+        ch = Challenger()
+        _observe_header(
+            ch, binding,
+            [(inst.air.name, log_n, [int(v) % P for v in inst.publics],
+              per[inst.air.name].get("pre_root"))
+             for inst, log_n in metas])
+
+        # 1. main-trace commits; on one device each chip's tree and root are
+        # done before the next chip's LDE (serial commits)
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            trace_m = _mont(inst.trace, d["dev"])
+            if lde_sharded is not None and log_n == metas[0][1]:
+                lde = lde_sharded(trace_m, config.log_blowup, d["s"])
+            else:
+                lde = coset_lde(trace_m, config.log_blowup, d["s"])
+            d.update(trace_m=trace_m, lde=lde,
+                     trace_tree=MerkleTree(lde, defer=defer))
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            d["trace_root"] = [int(x) for x in d["trace_tree"].root]
+            ch.observe_many(d["trace_root"])
+            _spill(d, ("lde", "pre_lde"), spill_bytes, d["dev"])
+        stages.next("perm_commit")
+
+        # 2. machine challenges + perm commits + bus sums
+        challenges = _sample_challenges(ch)
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            air = inst.air
+            n = 1 << log_n
+            if air.perm_width:
+                kw = ({"preprocessed": inst.preprocessed}
+                      if inst.preprocessed is not None else {})
+                with span(f"zktls.perm_trace:{air.name}"):
+                    perm_np = air.generate_perm_trace(
+                        inst.trace, [int(v) % P for v in inst.publics],
+                        challenges, **kw)
+                if perm_np.shape != (n, air.perm_width):
+                    raise ValueError(f"{air.name}: bad perm trace shape")
+                perm_m = _mont(perm_np, d["dev"])
+                perm_lde = coset_lde(perm_m, config.log_blowup, d["s"])
+                perm_tree = MerkleTree(perm_lde, defer=defer)
+                # the accumulator is the LAST extension element of the perm
+                # trace; its final row is the chip's cumulative bus sum
+                bus_sum = ([int(v) for v in perm_np[-1, -4:]]
+                           if getattr(air, "has_bus", False) else [0, 0, 0, 0])
+            else:
+                perm_m = torch.zeros((n, 0), dtype=bb.DTYPE, device=d["dev"])
+                perm_lde = torch.zeros((n << config.log_blowup, 0),
+                                       dtype=bb.DTYPE, device=d["dev"])
+                perm_tree = None
+                bus_sum = [0, 0, 0, 0]
+            d.update(perm_m=perm_m, perm_lde=perm_lde, perm_tree=perm_tree,
+                     perm_root=None, bus_sum=bus_sum)
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            if inst.air.perm_width:
+                d["perm_root"] = [int(x) for x in d["perm_tree"].root]
+                ch.observe_many(d["perm_root"])
+                ch.observe_many(d["bus_sum"])
+            _spill(d, ("lde", "pre_lde", "perm_lde"), spill_bytes, d["dev"])
+        stages.next("quotient")
+
+        # 3. quotients
+        alpha = ch.sample_ext()
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            air = inst.air
+            n = 1 << log_n
+            N = n << config.log_blowup
+            s_i = d["s"]
+            publics_full = [int(v) % P for v in inst.publics] + d["bus_sum"]
+            n_constraints = lower_air(
+                air, len(publics_full), len(challenges)).n_constraints
+            apow = np_ext_powers(
+                alpha, max(n_constraints, 1)).astype(np.uint32)
+
+            sels_np = selector_arrays(log_n, config.log_blowup, s_i)
+            sels_m = {k: _mont(sels_np[k], d["dev"])
+                      for k in ("is_first_row", "is_last_row",
+                                "is_transition")}
+            inv_zh_m = _mont(sels_np["inv_z_h"], d["dev"])
+            d["sels_np"] = sels_np
+
+            periodic_cols = []
+            for pattern in air.periodic_columns():
+                s_m = pow(s_i, n // len(pattern), P)
+                vals = coset_lde(_mont(np.asarray(pattern, dtype=np.uint32),
+                                       d["dev"]), config.log_blowup, s_m)
+                periodic_cols.append(vals.repeat(N // vals.shape[0]))
+            periodic_stack = (
+                torch.stack(periodic_cols, dim=0) if periodic_cols
+                else torch.zeros((0, N), dtype=bb.DTYPE, device=d["dev"]))
+
+            with span(f"zktls.constraint_vm:{air.name}"):
+                quotient_vals = eval_quotient_vm(
+                    air, d["lde"], d["perm_lde"], challenges, publics_full,
+                    apow, sels_m, inv_zh_m, periodic_stack, config.log_blowup,
+                    pre_lde=d.get("pre_lde"))
+
+            q_coeffs = coset_coeffs(quotient_vals, s_i)
+            chunks = [q_coeffs[k * n : (k + 1) * n]
+                      for k in range(config.blowup)]
+            q_cols = torch.cat(
+                [coeffs_to_coset_evals(c, config.log_blowup, s_i)
+                 for c in chunks], dim=1)
+            d.update(q_cols=q_cols, q_chunks=chunks,
+                     q_tree=MerkleTree(q_cols, defer=defer))
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            d["q_root"] = [int(x) for x in d["q_tree"].root]
+            ch.observe_many(d["q_root"])
+            _spill(d, ("lde", "pre_lde", "perm_lde", "q_cols"), spill_bytes,
+                   d["dev"])
+        stages.next("ood_openings")
+
+        # 4. out-of-domain openings
+        zeta = ch.sample_ext()
+        empty = np.zeros((0, 4), dtype=np.uint32)
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            n = 1 << log_n
+            g_zeta = zeta * two_adic_root(log_n)
+            zpows = _zeta_powers(zeta, n, d["dev"])
+            gzpows = _zeta_powers(g_zeta, n, d["dev"])
+            evals_np = {}
+            for key_l, key_n, src in (("tl", "tn", "trace_m"),
+                                      ("pl", "pn", "perm_m"),
+                                      ("el", "en", "pre_m")):
+                if src in d and d[src].shape[1]:
+                    coeffs = intt(d[src])
+                    evals_np[key_l] = _ext_evals_at(coeffs, zpows)
+                    evals_np[key_n] = _ext_evals_at(coeffs, gzpows)
+                else:
+                    evals_np[key_l] = evals_np[key_n] = empty
+            evals_np["qe"] = np.concatenate(
+                [_ext_evals_at(c, zpows) for c in d["q_chunks"]], axis=0)
+            d["evals"] = {k: [Fp4(*[int(x) for x in row]) for row in arr]
+                          for k, arr in evals_np.items()}
+            d["evals_np"] = evals_np
+            d["g_zeta"] = g_zeta
+            for k in ("tl", "tn", "pl", "pn", "qe", "el", "en"):
+                for v in d["evals"][k]:
+                    ch.observe_ext(v)
+            # free what later stages do not read
+            for k in ("trace_m", "perm_m", "pre_m", "q_chunks"):
+                d.pop(k, None)
+        stages.next("deep")
+
+        # 5. DEEP composition per chip, grouped by domain size.  β-power
+        # budget, per chip: ζ-group [trace ‖ pre ‖ perm ‖ quotient] then
+        # g·ζ-group [trace ‖ pre ‖ perm]
+        beta = ch.sample_ext()
+        total_terms = 0
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            w = (inst.air.width + getattr(inst.air, "preprocessed_width", 0)
+                 + inst.air.perm_width)
+            d["w_z"] = w + int(d["q_cols"].shape[1])
+            d["w_gz"] = w
+            d["beta_off"] = total_terms
+            total_terms += d["w_z"] + d["w_gz"]
+        bpow_all = bb.np_to_mont(np_ext_powers(beta, total_terms).astype(
+            np.uint32))
+
+        deep_by_log: dict[int, torch.Tensor] = {}
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            log_N = log_n + config.log_blowup
+            N = 1 << log_N
+            cdev = d["dev"]
+            x_ext = ex.ext_from_base(_mont(d["sels_np"]["x"], cdev))
+            zeta_arr = bb.from_numpy(ex.from_fp4(zeta), cdev).expand(N, 4)
+            gzeta_arr = bb.from_numpy(
+                ex.from_fp4(d["g_zeta"]), cdev).expand(N, 4)
+            inv_x_zeta = ex.ext_inv(ex.ext_sub(x_ext, zeta_arr))
+            inv_x_gzeta = ex.ext_inv(ex.ext_sub(x_ext, gzeta_arr))
+            env = {k: bb.from_numpy(bb.np_to_mont(v), cdev)
+                   for k, v in d["evals_np"].items()}
+            bslice = bb.from_numpy(
+                bpow_all[d["beta_off"] : d["beta_off"] + d["w_z"] + d["w_gz"]],
+                cdev)
+            pre_lde = d.get("pre_lde",
+                            torch.zeros((N, 0), dtype=bb.DTYPE, device=cdev))
+            srcs = [(d["lde"], "tl", "tn"), (pre_lde, "el", "en"),
+                    (d["perm_lde"], "pl", "pn")]
+            if d.get("spilled") or \
+                    N * 8 * (d["w_z"] + d["w_gz"]) > chunked_deep_bytes:
+                deep = _deep_chunked(
+                    [(m, env[z]) for m, z, _ in srcs]
+                    + [(d["q_cols"], env["qe"])],
+                    [(m, env[gz]) for m, _, gz in srcs],
+                    bslice, d["w_z"], inv_x_zeta, inv_x_gzeta)
+            else:
+                mats = [m for m, _, _ in srcs]
+                mat_z = torch.cat(mats + [d["q_cols"]], dim=1)
+                mat_gz = torch.cat(mats, dim=1)
+                ev_z = torch.cat([env[z] for _, z, _ in srcs] + [env["qe"]])
+                ev_gz = torch.cat([env[gz] for _, _, gz in srcs])
+                deep = _deep_fn(mat_z, mat_gz, bslice, ev_z, ev_gz, inv_x_zeta,
+                                inv_x_gzeta)
+                del mat_z, mat_gz
+            # the sums and FRI run on the first device
+            deep = deep.to(dev)
+            if log_N in deep_by_log:
+                deep_by_log[log_N] = ex.ext_add(deep_by_log[log_N], deep)
+            else:
+                deep_by_log[log_N] = deep
+        stages.next("fri")
+
+        # 6. mixed-height FRI (host-driven fold loop)
+        fri_roots, fri_trees, fri_layers, fri_final = _fri_commit(
+            ch, deep_by_log, config, log_N_max)
+        stages.next("queries")
+
+        # 7. grinding + queries
+        pow_witness, q_indices = _grind_and_sample(ch, config, log_N_max, dev)
+
+        # gather queried rows per chip (index = q mod N_i), on the device that
+        # holds each matrix (the host for a spilled one)
+        rows_by_chip = {}
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            N_i = 1 << (log_n + config.log_blowup)
+            idx_np = np.array([q % N_i for q in q_indices], dtype=np.int64)
+
+            def _rows(mat):
+                idx = torch.from_numpy(idx_np).to(mat.device)
+                return bb.np_from_mont(bb.to_numpy(mat[idx]))
+
+            rows_by_chip[inst.air.name] = {
+                "idx": [int(j) for j in idx_np],
+                "trace": _rows(d["lde"]),
+                "quot": _rows(d["q_cols"]),
+                "perm": _rows(d["perm_lde"]) if inst.air.perm_width else None,
+                "pre": _rows(d["pre_lde"]) if "pre_lde" in d else None,
+            }
+
+        fri_steps = _fri_steps(fri_layers, fri_trees, q_indices, log_N_max)
+
+        def _opened(rows, tree, qi_pos, j):
+            if rows is None:
+                return [], []
+            return [int(x) for x in rows[qi_pos]], _open_path(tree, j)
+
+        queries = []
+        for qi_pos, q in enumerate(q_indices):
+            openings = []
+            for inst, log_n in metas:
+                d = per[inst.air.name]
+                rc = rows_by_chip[inst.air.name]
+                j = rc["idx"][qi_pos]
+                perm_row, perm_path = _opened(rc["perm"], d["perm_tree"],
+                                              qi_pos, j)
+                pre_row, pre_path = _opened(rc["pre"], d.get("pre_tree"),
+                                            qi_pos, j)
+                openings.append(ChipOpening(
+                    trace_row=[int(x) for x in rc["trace"][qi_pos]],
+                    trace_path=_open_path(d["trace_tree"], j),
+                    quotient_row=[int(x) for x in rc["quot"][qi_pos]],
+                    quotient_path=_open_path(d["q_tree"], j),
+                    perm_row=perm_row, perm_path=perm_path,
+                    pre_row=pre_row, pre_path=pre_path,
+                ))
+            queries.append(MachineQuery(index=q, openings=openings,
+                                        fri_steps=fri_steps[qi_pos]))
 
     return MachineProof(
         chips=[ChipProof(

@@ -36,6 +36,7 @@ from ..ops import babybear as bb
 from ..ops import ext as ex
 from ..ops.field_ref import Fp4, P, two_adic_root
 from ..ops.ntt import coeffs_to_coset_evals, coset_coeffs, coset_lde, intt
+from ..utils.spans import Stages
 from .air import Air
 from .bus import MAX_PAYLOAD, bus_term, delta_powers
 from .commit_bn import FrChallenger, MimcTree, grind_bn, leaf_digest, \
@@ -239,298 +240,292 @@ def prove_machine_bn(chips: list[ChipInstance], binding: bytes,
     anyway."""
     dev = _resolve_device(device)
     t0 = time.perf_counter()
-    t_last = [t0]
-    mimc_s = [0.0]
+    with Stages(timings, "lde_commit", [dev]) as stages:
+        mimc_s = [0.0]
 
-    def _mark(label):
-        if timings is None:
-            return
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        timings[label] = timings.get(label, 0.0) + now - t_last[0]
-        t_last[0] = now
+        def _tree(mat: torch.Tensor) -> tuple[np.ndarray, MimcTree]:
+            """(the plain host matrix, its MiMC tree)."""
+            host = bb.to_plain_numpy(mat, _HOST_ROWS)
+            t = time.perf_counter()
+            tree = MimcTree(host)
+            mimc_s[0] += time.perf_counter() - t
+            return host, tree
 
-    def _tree(mat: torch.Tensor) -> tuple[np.ndarray, MimcTree]:
-        """(the plain host matrix, its MiMC tree)."""
-        host = bb.to_plain_numpy(mat, _HOST_ROWS)
-        t = time.perf_counter()
-        tree = MimcTree(host)
-        mimc_s[0] += time.perf_counter() - t
-        return host, tree
+        metas = []
+        for inst in chips:
+            n, w = inst.trace.shape
+            log_n = n.bit_length() - 1
+            if 1 << log_n != n or w != inst.air.width:
+                raise ValueError(f"{inst.air.name}: bad trace shape")
+            pre_w = getattr(inst.air, "preprocessed_width", 0)
+            if pre_w and (inst.preprocessed is None
+                          or inst.preprocessed.shape != (n, pre_w)):
+                raise ValueError(f"{inst.air.name}: bad preprocessed shape")
+            metas.append((inst, log_n))
+        metas = _machine_order(metas, lambda m: m[1], lambda m: m[0].air.name)
+        log_N_max = metas[0][1] + config.log_blowup
+        shifts = {}
+        for inst, log_n in metas:
+            k = log_N_max - (log_n + config.log_blowup)
+            shifts[inst.air.name] = pow(config.shift, 1 << k, P)
 
-    metas = []
-    for inst in chips:
-        n, w = inst.trace.shape
-        log_n = n.bit_length() - 1
-        if 1 << log_n != n or w != inst.air.width:
-            raise ValueError(f"{inst.air.name}: bad trace shape")
-        pre_w = getattr(inst.air, "preprocessed_width", 0)
-        if pre_w and (inst.preprocessed is None
-                      or inst.preprocessed.shape != (n, pre_w)):
-            raise ValueError(f"{inst.air.name}: bad preprocessed shape")
-        metas.append((inst, log_n))
-    metas = _machine_order(metas, lambda m: m[1], lambda m: m[0].air.name)
-    log_N_max = metas[0][1] + config.log_blowup
-    shifts = {}
-    for inst, log_n in metas:
-        k = log_N_max - (log_n + config.log_blowup)
-        shifts[inst.air.name] = pow(config.shift, 1 << k, P)
+        # preprocessed commits (vk material)
+        per: dict[str, dict] = {}
+        for inst, log_n in metas:
+            name = inst.air.name
+            d = {"inst": inst, "log_n": log_n, "s": shifts[name]}
+            if getattr(inst.air, "preprocessed_width", 0):
+                d["pre_m"] = _mont(inst.preprocessed, dev)
+                d["pre_lde_dev"] = coset_lde(d["pre_m"], config.log_blowup,
+                                             shifts[name])
+                d["pre_lde"], d["pre_tree"] = _tree(d["pre_lde_dev"])
+                if vk_roots is not None:
+                    vk_roots[name] = d["pre_tree"].root
+            per[name] = d
 
-    # preprocessed commits (vk material)
-    per: dict[str, dict] = {}
-    for inst, log_n in metas:
-        name = inst.air.name
-        d = {"inst": inst, "log_n": log_n, "s": shifts[name]}
-        if getattr(inst.air, "preprocessed_width", 0):
-            d["pre_m"] = _mont(inst.preprocessed, dev)
-            d["pre_lde_dev"] = coset_lde(d["pre_m"], config.log_blowup,
-                                         shifts[name])
-            d["pre_lde"], d["pre_tree"] = _tree(d["pre_lde_dev"])
-            if vk_roots is not None:
-                vk_roots[name] = d["pre_tree"].root
-        per[name] = d
+        ch = FrChallenger()
+        _observe_header_bn(
+            ch, binding,
+            [(inst.air.name, log_n, [int(v) % P for v in inst.publics],
+              per[inst.air.name].get("pre_tree") and
+              per[inst.air.name]["pre_tree"].root)
+             for inst, log_n in metas])
 
-    ch = FrChallenger()
-    _observe_header_bn(
-        ch, binding,
-        [(inst.air.name, log_n, [int(v) % P for v in inst.publics],
-          per[inst.air.name].get("pre_tree") and
-          per[inst.air.name]["pre_tree"].root)
-         for inst, log_n in metas])
-
-    # 1. trace commits
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        d["trace_m"] = _mont(inst.trace, dev)
-        d["lde_dev"] = coset_lde(d["trace_m"], config.log_blowup, d["s"])
-        d["lde"], d["trace_tree"] = _tree(d["lde_dev"])
-    for inst, log_n in metas:
-        ch.observe_fr(per[inst.air.name]["trace_tree"].root)
-    _mark("lde_commit")
-
-    # 2. machine challenges + perm commits + bus sums
-    challenges = _sample_challenges_bn(ch)
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        air = inst.air
-        n = 1 << log_n
-        if air.perm_width:
-            kw = ({"preprocessed": inst.preprocessed}
-                  if inst.preprocessed is not None else {})
-            perm_np = air.generate_perm_trace(
-                inst.trace, [int(v) % P for v in inst.publics],
-                challenges, **kw)
-            d["perm_m"] = _mont(perm_np, dev)
-            d["perm_lde_dev"] = coset_lde(d["perm_m"], config.log_blowup,
-                                          d["s"])
-            d["perm_lde"], d["perm_tree"] = _tree(d["perm_lde_dev"])
-            bus_sum = ([int(v) for v in perm_np[-1, -4:]]
-                       if getattr(air, "has_bus", False) else [0, 0, 0, 0])
-        else:
-            d["perm_m"] = torch.zeros((n, 0), dtype=bb.DTYPE, device=dev)
-            d["perm_lde_dev"] = torch.zeros((n << config.log_blowup, 0),
-                                            dtype=bb.DTYPE, device=dev)
-            d["perm_lde"] = np.zeros((n << config.log_blowup, 0), np.uint32)
-            d["perm_tree"] = None
-            bus_sum = [0, 0, 0, 0]
-        d["bus_sum"] = bus_sum
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        if inst.air.perm_width:
-            ch.observe_fr(d["perm_tree"].root)
-            ch.observe_many(d["bus_sum"])
-    _mark("perm_commit")
-
-    # 3. quotients
-    alpha = ch.sample_ext()
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        air = inst.air
-        n = 1 << log_n
-        N = n << config.log_blowup
-        s_i = d["s"]
-        publics_full = [int(v) % P for v in inst.publics] + d["bus_sum"]
-        n_constraints = lower_air(
-            air, len(publics_full), len(challenges)).n_constraints
-        apow = np_ext_powers(alpha, max(n_constraints, 1)).astype(np.uint32)
-        sels_np = selector_arrays(log_n, config.log_blowup, s_i)
-        sels_m = {k: _mont(sels_np[k], dev)
-                  for k in ("is_first_row", "is_last_row", "is_transition")}
-        inv_zh_m = _mont(sels_np["inv_z_h"], dev)
-        d["sels_np"] = sels_np
-        periodic_cols = []
-        for pattern in air.periodic_columns():
-            s_m = pow(s_i, n // len(pattern), P)
-            vals = coset_lde(_mont(np.asarray(pattern, dtype=np.uint32),
-                                   dev), config.log_blowup, s_m)
-            periodic_cols.append(vals.repeat(N // vals.shape[0]))
-        periodic_stack = (torch.stack(periodic_cols, dim=0) if periodic_cols
-                          else torch.zeros((0, N), dtype=bb.DTYPE,
-                                           device=dev))
-        quotient_vals = eval_quotient_vm(
-            air, d["lde_dev"], d["perm_lde_dev"], challenges, publics_full,
-            apow, sels_m, inv_zh_m, periodic_stack, config.log_blowup,
-            pre_lde=d.get("pre_lde_dev"))
-        q_coeffs = coset_coeffs(quotient_vals, s_i)
-        chunks = [q_coeffs[k * n : (k + 1) * n]
-                  for k in range(config.blowup)]
-        d["q_cols_dev"] = torch.cat(
-            [coeffs_to_coset_evals(c, config.log_blowup, s_i)
-             for c in chunks], dim=1)
-        d["q_chunks"] = chunks
-        d["q_cols"], d["q_tree"] = _tree(d["q_cols_dev"])
-    for inst, log_n in metas:
-        ch.observe_fr(per[inst.air.name]["q_tree"].root)
-    _mark("quotient")
-
-    # 4. OOD openings
-    zeta = ch.sample_ext()
-    empty = np.zeros((0, 4), dtype=np.uint32)
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        n = 1 << log_n
-        g_zeta = zeta * two_adic_root(log_n)
-        zpows = _zeta_powers(zeta, n, dev)
-        gzpows = _zeta_powers(g_zeta, n, dev)
-        evals_np = {}
-        for key_l, key_n, src in (("tl", "tn", "trace_m"),
-                                  ("pl", "pn", "perm_m"),
-                                  ("el", "en", "pre_m")):
-            if src in d and d[src].shape[1]:
-                coeffs = intt(d[src])
-                evals_np[key_l] = _ext_evals_at(coeffs, zpows)
-                evals_np[key_n] = _ext_evals_at(coeffs, gzpows)
-            else:
-                evals_np[key_l] = evals_np[key_n] = empty
-        evals_np["qe"] = np.concatenate(
-            [_ext_evals_at(c, zpows) for c in d["q_chunks"]], axis=0)
-        d["evals"] = {k: [Fp4(*[int(x) for x in row]) for row in arr]
-                      for k, arr in evals_np.items()}
-        d["evals_np"] = evals_np
-        d["g_zeta"] = g_zeta
-        for k in ("tl", "tn", "pl", "pn", "qe", "el", "en"):
-            for v in d["evals"][k]:
-                ch.observe_ext(v)
-        # free what later stages do not read
-        for k in ("trace_m", "perm_m", "pre_m", "q_chunks"):
-            d.pop(k, None)
-    _mark("ood_openings")
-
-    # 5. DEEP: per chip, ζ-group [trace ‖ pre ‖ perm ‖ quotient] then
-    # g·ζ-group [trace ‖ pre ‖ perm]
-    beta = ch.sample_ext()
-    total_terms = 0
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        ew = getattr(inst.air, "preprocessed_width", 0)
-        d["w_z"] = (inst.air.width + ew + inst.air.perm_width
-                    + int(d["q_cols"].shape[1]))
-        d["w_gz"] = inst.air.width + ew + inst.air.perm_width
-        d["beta_off"] = total_terms
-        total_terms += d["w_z"] + d["w_gz"]
-    bpow_all = bb.np_to_mont(np_ext_powers(beta, total_terms).astype(
-        np.uint32))
-    deep_by_log: dict[int, torch.Tensor] = {}
-    for inst, log_n in metas:
-        d = per[inst.air.name]
-        log_N = log_n + config.log_blowup
-        N = 1 << log_N
-        x_ext = ex.ext_from_base(_mont(d["sels_np"]["x"], dev))
-        zeta_arr = bb.from_numpy(ex.from_fp4(zeta), dev).expand(N, 4)
-        gzeta_arr = bb.from_numpy(ex.from_fp4(d["g_zeta"]), dev).expand(N, 4)
-        inv_x_zeta = ex.ext_inv(ex.ext_sub(x_ext, zeta_arr))
-        inv_x_gzeta = ex.ext_inv(ex.ext_sub(x_ext, gzeta_arr))
-        pre_dev = d.get("pre_lde_dev",
-                        torch.zeros((N, 0), dtype=bb.DTYPE, device=dev))
-        mats = [d["lde_dev"], pre_dev, d["perm_lde_dev"]]
-        mat_z = torch.cat(mats + [d["q_cols_dev"]], dim=1)
-        mat_gz = torch.cat(mats, dim=1)
-        env = d["evals_np"]
-        ev_z = bb.from_numpy(bb.np_to_mont(np.concatenate(
-            [env["tl"], env["el"], env["pl"], env["qe"]],
-            axis=0).astype(np.uint32)), dev)
-        ev_gz = bb.from_numpy(bb.np_to_mont(np.concatenate(
-            [env["tn"], env["en"], env["pn"]], axis=0).astype(np.uint32)),
-            dev)
-        bslice = bb.from_numpy(
-            bpow_all[d["beta_off"] : d["beta_off"] + d["w_z"] + d["w_gz"]],
-            dev)
-        deep = _deep_fn(mat_z, mat_gz, bslice, ev_z, ev_gz, inv_x_zeta,
-                        inv_x_gzeta)
-        del mat_z, mat_gz
-        if log_N in deep_by_log:
-            deep_by_log[log_N] = ex.ext_add(deep_by_log[log_N], deep)
-        else:
-            deep_by_log[log_N] = deep
-    _mark("deep")
-
-    # 6. FRI (host challenger, MiMC layer trees)
-    fri_roots: list[int] = []
-    fri_trees: list[MimcTree] = []
-    fri_layers: list[np.ndarray] = []
-    cur = deep_by_log[log_N_max]
-    cur_shift = config.shift
-    cur_log = log_N_max
-    while (1 << cur_log) > config.fri_final_size:
-        rows, tree = _tree(_pair_rows(cur))
-        fri_trees.append(tree)
-        fri_roots.append(tree.root)
-        fri_layers.append(rows)
-        ch.observe_fr(tree.root)
-        beta_l = ch.sample_ext()
-        cur = _fold_layer(cur, beta_l, _inv_2x(cur_log, cur_shift))
-        cur_shift = cur_shift * cur_shift % P
-        cur_log -= 1
-        if cur_log in deep_by_log:
-            cur = ex.ext_add(cur, deep_by_log[cur_log])
-    final_plain = bb.to_plain_numpy(cur, _HOST_ROWS)
-    fri_final = [Fp4(*[int(x) for x in row]) for row in final_plain]
-    for v in fri_final:
-        ch.observe_ext(v)
-    _mark("fri")
-
-    # 7. grinding + queries
-    pow_witness = 0
-    if config.pow_bits:
-        pow_witness = grind_bn(ch, config.pow_bits)
-    ch.check_witness(config.pow_bits, pow_witness)
-    q_indices = [ch.sample_bits(log_N_max)
-                 for _ in range(config.num_queries)]
-
-    queries = []
-    for q in q_indices:
-        openings = []
+        # 1. trace commits
         for inst, log_n in metas:
             d = per[inst.air.name]
-            N_i = 1 << (log_n + config.log_blowup)
-            j = q % N_i
-            openings.append(ChipOpeningBN(
-                trace_row=[int(x) for x in d["lde"][j]],
-                trace_path=d["trace_tree"].open(j),
-                quotient_row=[int(x) for x in d["q_cols"][j]],
-                quotient_path=d["q_tree"].open(j),
-                perm_row=([int(x) for x in d["perm_lde"][j]]
-                          if inst.air.perm_width else []),
-                perm_path=(d["perm_tree"].open(j)
-                           if d["perm_tree"] is not None else []),
-                pre_row=([int(x) for x in d["pre_lde"][j]]
-                         if "pre_lde" in d else []),
-                pre_path=(d["pre_tree"].open(j)
-                          if "pre_tree" in d else []),
-            ))
-        steps = []
-        qq = q
-        for ell, rows in enumerate(fri_layers):
-            half = rows.shape[0]
-            j = qq % half
-            pair = (Fp4(*[int(x) for x in rows[j][:4]]),
-                    Fp4(*[int(x) for x in rows[j][4:]]))
-            steps.append((pair, fri_trees[ell].open(j)))
-            qq = j
-        queries.append(MachineQueryBN(index=q, openings=openings,
-                                      fri_steps=steps))
-    _mark("queries")
+            d["trace_m"] = _mont(inst.trace, dev)
+            d["lde_dev"] = coset_lde(d["trace_m"], config.log_blowup, d["s"])
+            d["lde"], d["trace_tree"] = _tree(d["lde_dev"])
+        for inst, log_n in metas:
+            ch.observe_fr(per[inst.air.name]["trace_tree"].root)
+        stages.next("perm_commit")
+
+        # 2. machine challenges + perm commits + bus sums
+        challenges = _sample_challenges_bn(ch)
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            air = inst.air
+            n = 1 << log_n
+            if air.perm_width:
+                kw = ({"preprocessed": inst.preprocessed}
+                      if inst.preprocessed is not None else {})
+                perm_np = air.generate_perm_trace(
+                    inst.trace, [int(v) % P for v in inst.publics],
+                    challenges, **kw)
+                d["perm_m"] = _mont(perm_np, dev)
+                d["perm_lde_dev"] = coset_lde(d["perm_m"], config.log_blowup,
+                                              d["s"])
+                d["perm_lde"], d["perm_tree"] = _tree(d["perm_lde_dev"])
+                bus_sum = ([int(v) for v in perm_np[-1, -4:]]
+                           if getattr(air, "has_bus", False) else [0, 0, 0, 0])
+            else:
+                d["perm_m"] = torch.zeros((n, 0), dtype=bb.DTYPE, device=dev)
+                d["perm_lde_dev"] = torch.zeros((n << config.log_blowup, 0),
+                                                dtype=bb.DTYPE, device=dev)
+                d["perm_lde"] = np.zeros((n << config.log_blowup, 0),
+                                         np.uint32)
+                d["perm_tree"] = None
+                bus_sum = [0, 0, 0, 0]
+            d["bus_sum"] = bus_sum
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            if inst.air.perm_width:
+                ch.observe_fr(d["perm_tree"].root)
+                ch.observe_many(d["bus_sum"])
+        stages.next("quotient")
+
+        # 3. quotients
+        alpha = ch.sample_ext()
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            air = inst.air
+            n = 1 << log_n
+            N = n << config.log_blowup
+            s_i = d["s"]
+            publics_full = [int(v) % P for v in inst.publics] + d["bus_sum"]
+            n_constraints = lower_air(
+                air, len(publics_full), len(challenges)).n_constraints
+            apow = np_ext_powers(
+                alpha, max(n_constraints, 1)).astype(np.uint32)
+            sels_np = selector_arrays(log_n, config.log_blowup, s_i)
+            sels_m = {k: _mont(sels_np[k], dev)
+                      for k in ("is_first_row", "is_last_row",
+                                "is_transition")}
+            inv_zh_m = _mont(sels_np["inv_z_h"], dev)
+            d["sels_np"] = sels_np
+            periodic_cols = []
+            for pattern in air.periodic_columns():
+                s_m = pow(s_i, n // len(pattern), P)
+                vals = coset_lde(_mont(np.asarray(pattern, dtype=np.uint32),
+                                       dev), config.log_blowup, s_m)
+                periodic_cols.append(vals.repeat(N // vals.shape[0]))
+            periodic_stack = (
+                torch.stack(periodic_cols, dim=0) if periodic_cols
+                else torch.zeros((0, N), dtype=bb.DTYPE, device=dev))
+            quotient_vals = eval_quotient_vm(
+                air, d["lde_dev"], d["perm_lde_dev"], challenges, publics_full,
+                apow, sels_m, inv_zh_m, periodic_stack, config.log_blowup,
+                pre_lde=d.get("pre_lde_dev"))
+            q_coeffs = coset_coeffs(quotient_vals, s_i)
+            chunks = [q_coeffs[k * n : (k + 1) * n]
+                      for k in range(config.blowup)]
+            d["q_cols_dev"] = torch.cat(
+                [coeffs_to_coset_evals(c, config.log_blowup, s_i)
+                 for c in chunks], dim=1)
+            d["q_chunks"] = chunks
+            d["q_cols"], d["q_tree"] = _tree(d["q_cols_dev"])
+        for inst, log_n in metas:
+            ch.observe_fr(per[inst.air.name]["q_tree"].root)
+        stages.next("ood_openings")
+
+        # 4. OOD openings
+        zeta = ch.sample_ext()
+        empty = np.zeros((0, 4), dtype=np.uint32)
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            n = 1 << log_n
+            g_zeta = zeta * two_adic_root(log_n)
+            zpows = _zeta_powers(zeta, n, dev)
+            gzpows = _zeta_powers(g_zeta, n, dev)
+            evals_np = {}
+            for key_l, key_n, src in (("tl", "tn", "trace_m"),
+                                      ("pl", "pn", "perm_m"),
+                                      ("el", "en", "pre_m")):
+                if src in d and d[src].shape[1]:
+                    coeffs = intt(d[src])
+                    evals_np[key_l] = _ext_evals_at(coeffs, zpows)
+                    evals_np[key_n] = _ext_evals_at(coeffs, gzpows)
+                else:
+                    evals_np[key_l] = evals_np[key_n] = empty
+            evals_np["qe"] = np.concatenate(
+                [_ext_evals_at(c, zpows) for c in d["q_chunks"]], axis=0)
+            d["evals"] = {k: [Fp4(*[int(x) for x in row]) for row in arr]
+                          for k, arr in evals_np.items()}
+            d["evals_np"] = evals_np
+            d["g_zeta"] = g_zeta
+            for k in ("tl", "tn", "pl", "pn", "qe", "el", "en"):
+                for v in d["evals"][k]:
+                    ch.observe_ext(v)
+            # free what later stages do not read
+            for k in ("trace_m", "perm_m", "pre_m", "q_chunks"):
+                d.pop(k, None)
+        stages.next("deep")
+
+        # 5. DEEP: per chip, ζ-group [trace ‖ pre ‖ perm ‖ quotient] then
+        # g·ζ-group [trace ‖ pre ‖ perm]
+        beta = ch.sample_ext()
+        total_terms = 0
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            ew = getattr(inst.air, "preprocessed_width", 0)
+            d["w_z"] = (inst.air.width + ew + inst.air.perm_width
+                        + int(d["q_cols"].shape[1]))
+            d["w_gz"] = inst.air.width + ew + inst.air.perm_width
+            d["beta_off"] = total_terms
+            total_terms += d["w_z"] + d["w_gz"]
+        bpow_all = bb.np_to_mont(np_ext_powers(beta, total_terms).astype(
+            np.uint32))
+        deep_by_log: dict[int, torch.Tensor] = {}
+        for inst, log_n in metas:
+            d = per[inst.air.name]
+            log_N = log_n + config.log_blowup
+            N = 1 << log_N
+            x_ext = ex.ext_from_base(_mont(d["sels_np"]["x"], dev))
+            zeta_arr = bb.from_numpy(ex.from_fp4(zeta), dev).expand(N, 4)
+            gzeta_arr = bb.from_numpy(
+                ex.from_fp4(d["g_zeta"]), dev).expand(N, 4)
+            inv_x_zeta = ex.ext_inv(ex.ext_sub(x_ext, zeta_arr))
+            inv_x_gzeta = ex.ext_inv(ex.ext_sub(x_ext, gzeta_arr))
+            pre_dev = d.get("pre_lde_dev",
+                            torch.zeros((N, 0), dtype=bb.DTYPE, device=dev))
+            mats = [d["lde_dev"], pre_dev, d["perm_lde_dev"]]
+            mat_z = torch.cat(mats + [d["q_cols_dev"]], dim=1)
+            mat_gz = torch.cat(mats, dim=1)
+            env = d["evals_np"]
+            ev_z = bb.from_numpy(bb.np_to_mont(np.concatenate(
+                [env["tl"], env["el"], env["pl"], env["qe"]],
+                axis=0).astype(np.uint32)), dev)
+            ev_gz = bb.from_numpy(bb.np_to_mont(np.concatenate(
+                [env["tn"], env["en"], env["pn"]], axis=0).astype(np.uint32)),
+                dev)
+            bslice = bb.from_numpy(
+                bpow_all[d["beta_off"] : d["beta_off"] + d["w_z"] + d["w_gz"]],
+                dev)
+            deep = _deep_fn(mat_z, mat_gz, bslice, ev_z, ev_gz, inv_x_zeta,
+                            inv_x_gzeta)
+            del mat_z, mat_gz
+            if log_N in deep_by_log:
+                deep_by_log[log_N] = ex.ext_add(deep_by_log[log_N], deep)
+            else:
+                deep_by_log[log_N] = deep
+        stages.next("fri")
+
+        # 6. FRI (host challenger, MiMC layer trees)
+        fri_roots: list[int] = []
+        fri_trees: list[MimcTree] = []
+        fri_layers: list[np.ndarray] = []
+        cur = deep_by_log[log_N_max]
+        cur_shift = config.shift
+        cur_log = log_N_max
+        while (1 << cur_log) > config.fri_final_size:
+            rows, tree = _tree(_pair_rows(cur))
+            fri_trees.append(tree)
+            fri_roots.append(tree.root)
+            fri_layers.append(rows)
+            ch.observe_fr(tree.root)
+            beta_l = ch.sample_ext()
+            cur = _fold_layer(cur, beta_l, _inv_2x(cur_log, cur_shift))
+            cur_shift = cur_shift * cur_shift % P
+            cur_log -= 1
+            if cur_log in deep_by_log:
+                cur = ex.ext_add(cur, deep_by_log[cur_log])
+        final_plain = bb.to_plain_numpy(cur, _HOST_ROWS)
+        fri_final = [Fp4(*[int(x) for x in row]) for row in final_plain]
+        for v in fri_final:
+            ch.observe_ext(v)
+        stages.next("queries")
+
+        # 7. grinding + queries
+        pow_witness = 0
+        if config.pow_bits:
+            pow_witness = grind_bn(ch, config.pow_bits)
+        ch.check_witness(config.pow_bits, pow_witness)
+        q_indices = [ch.sample_bits(log_N_max)
+                     for _ in range(config.num_queries)]
+
+        queries = []
+        for q in q_indices:
+            openings = []
+            for inst, log_n in metas:
+                d = per[inst.air.name]
+                N_i = 1 << (log_n + config.log_blowup)
+                j = q % N_i
+                openings.append(ChipOpeningBN(
+                    trace_row=[int(x) for x in d["lde"][j]],
+                    trace_path=d["trace_tree"].open(j),
+                    quotient_row=[int(x) for x in d["q_cols"][j]],
+                    quotient_path=d["q_tree"].open(j),
+                    perm_row=([int(x) for x in d["perm_lde"][j]]
+                              if inst.air.perm_width else []),
+                    perm_path=(d["perm_tree"].open(j)
+                               if d["perm_tree"] is not None else []),
+                    pre_row=([int(x) for x in d["pre_lde"][j]]
+                             if "pre_lde" in d else []),
+                    pre_path=(d["pre_tree"].open(j)
+                              if "pre_tree" in d else []),
+                ))
+            steps = []
+            qq = q
+            for ell, rows in enumerate(fri_layers):
+                half = rows.shape[0]
+                j = qq % half
+                pair = (Fp4(*[int(x) for x in rows[j][:4]]),
+                        Fp4(*[int(x) for x in rows[j][4:]]))
+                steps.append((pair, fri_trees[ell].open(j)))
+                qq = j
+            queries.append(MachineQueryBN(index=q, openings=openings,
+                                          fri_steps=steps))
     if timings is not None:
         timings["mimc_s"] = timings.get("mimc_s", 0.0) + mimc_s[0]
         timings["prove_bn_s"] = round(time.perf_counter() - t0, 3)

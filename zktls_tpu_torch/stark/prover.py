@@ -26,8 +26,6 @@ and Fp4.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -44,6 +42,7 @@ from ..ops.ntt import (
     np_batch_inverse,
 )
 from ..ops.poseidon2 import permute_batch
+from ..utils.spans import Stages
 from .air import Air
 from .challenger import Challenger
 from .config import DEFAULT_CONFIG, StarkConfig, selector_arrays
@@ -258,177 +257,168 @@ def prove(air: Air, trace: np.ndarray, public_values: list[int] | None = None,
     from .machine import _resolve_device
 
     dev = _resolve_device(device)
-    t_last = [time.perf_counter()]
+    with Stages(timings, "lde_commit", [dev]) as stages:
 
-    def _mark(label):
-        if timings is None:
-            return
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        timings[label] = now - t_last[0]
-        t_last[0] = now
+        public_values = [int(v) % P for v in (public_values or [])]
+        n, w = trace.shape
+        log_n = n.bit_length() - 1
+        if 1 << log_n != n:
+            raise ValueError("trace height must be a power of two")
+        if w != air.width:
+            raise ValueError(f"trace width {w} != air width {air.width}")
+        if air.max_constraint_degree + 1 > config.blowup:
+            raise ValueError(
+                f"constraint degree {air.max_constraint_degree} needs blowup "
+                f"> {air.max_constraint_degree}"
+            )
+        N = n << config.log_blowup
+        s = config.shift
+        g = two_adic_root(log_n)
 
-    public_values = [int(v) % P for v in (public_values or [])]
-    n, w = trace.shape
-    log_n = n.bit_length() - 1
-    if 1 << log_n != n:
-        raise ValueError("trace height must be a power of two")
-    if w != air.width:
-        raise ValueError(f"trace width {w} != air width {air.width}")
-    if air.max_constraint_degree + 1 > config.blowup:
-        raise ValueError(
-            f"constraint degree {air.max_constraint_degree} needs blowup "
-            f"> {air.max_constraint_degree}"
-        )
-    N = n << config.log_blowup
-    s = config.shift
-    g = two_adic_root(log_n)
+        # 1. trace LDE + commit --------------------------------------------
+        trace_m = _mont(trace, dev)
+        lde = coset_lde(trace_m, config.log_blowup, s)           # (N, w)
+        trace_tree = MerkleTree(lde)
+        trace_root = [int(x) for x in trace_tree.root]
+        stages.next("quotient")
 
-    # 1. trace LDE + commit ------------------------------------------------
-    trace_m = _mont(trace, dev)
-    lde = coset_lde(trace_m, config.log_blowup, s)           # (N, w)
-    trace_tree = MerkleTree(lde)
-    trace_root = [int(x) for x in trace_tree.root]
-    _mark("lde_commit")
+        ch = Challenger()
+        ch.observe_bytes(air.name.encode())
+        ch.observe(log_n)
+        ch.observe_many(public_values)
+        ch.observe_many(trace_root)
 
-    ch = Challenger()
-    ch.observe_bytes(air.name.encode())
-    ch.observe(log_n)
-    ch.observe_many(public_values)
-    ch.observe_many(trace_root)
+        # 1b. LogUp permutation trace (second commitment round) ------------
+        challenges: list[Fp4] = []
+        perm_root: list[int] | None = None
+        perm_tree = None
+        if air.perm_width:
+            challenges = [ch.sample_ext()
+                          for _ in range(air.num_perm_challenges)]
+            perm_np = air.generate_perm_trace(trace, public_values, challenges)
+            if perm_np.shape != (n, air.perm_width):
+                raise ValueError("generate_perm_trace returned wrong shape")
+            perm_m = _mont(perm_np, dev)
+            perm_lde = coset_lde(perm_m, config.log_blowup, s)
+            perm_tree = MerkleTree(perm_lde)
+            perm_root = [int(x) for x in perm_tree.root]
+            ch.observe_many(perm_root)
+        else:
+            perm_m = torch.zeros((n, 0), dtype=bb.DTYPE, device=dev)
+            perm_lde = torch.zeros((N, 0), dtype=bb.DTYPE, device=dev)
 
-    # 1b. LogUp permutation trace (second commitment round) ----------------
-    challenges: list[Fp4] = []
-    perm_root: list[int] | None = None
-    perm_tree = None
-    if air.perm_width:
-        challenges = [ch.sample_ext()
-                      for _ in range(air.num_perm_challenges)]
-        perm_np = air.generate_perm_trace(trace, public_values, challenges)
-        if perm_np.shape != (n, air.perm_width):
-            raise ValueError("generate_perm_trace returned wrong shape")
-        perm_m = _mont(perm_np, dev)
-        perm_lde = coset_lde(perm_m, config.log_blowup, s)
-        perm_tree = MerkleTree(perm_lde)
-        perm_root = [int(x) for x in perm_tree.root]
-        ch.observe_many(perm_root)
-    else:
-        perm_m = torch.zeros((n, 0), dtype=bb.DTYPE, device=dev)
-        perm_lde = torch.zeros((N, 0), dtype=bb.DTYPE, device=dev)
+        # 2. quotient ------------------------------------------------------
+        alpha = ch.sample_ext()
+        n_constraints = lower_air(
+            air, len(public_values), len(challenges)).n_constraints
+        apow = np_ext_powers(alpha, max(n_constraints, 1)).astype(np.uint32)
 
-    # 2. quotient ----------------------------------------------------------
-    alpha = ch.sample_ext()
-    n_constraints = lower_air(
-        air, len(public_values), len(challenges)).n_constraints
-    apow = np_ext_powers(alpha, max(n_constraints, 1)).astype(np.uint32)
+        sels_np = selector_arrays(log_n, config.log_blowup, s)
+        sels_m = {k: _mont(sels_np[k], dev)
+                  for k in ("is_first_row", "is_last_row", "is_transition")}
+        inv_zh_m = _mont(sels_np["inv_z_h"], dev)
 
-    sels_np = selector_arrays(log_n, config.log_blowup, s)
-    sels_m = {k: _mont(sels_np[k], dev)
-              for k in ("is_first_row", "is_last_row", "is_transition")}
-    inv_zh_m = _mont(sels_np["inv_z_h"], dev)
+        # periodic columns: evaluate each period-m pattern on the commit coset
+        # (period becomes m·blowup there) and tile — no commitment needed
+        periodic_cols = []
+        for pattern in air.periodic_columns():
+            s_m = pow(s, n // len(pattern), P)
+            vals = coset_lde(_mont(np.asarray(pattern, dtype=np.uint32), dev),
+                             config.log_blowup, s_m)
+            periodic_cols.append(vals.repeat(N // vals.shape[0]))
+        periodic_stack = (torch.stack(periodic_cols, dim=0) if periodic_cols
+                          else torch.zeros((0, N), dtype=bb.DTYPE, device=dev))
 
-    # periodic columns: evaluate each period-m pattern on the commit coset
-    # (period becomes m·blowup there) and tile — no commitment needed
-    periodic_cols = []
-    for pattern in air.periodic_columns():
-        s_m = pow(s, n // len(pattern), P)
-        vals = coset_lde(_mont(np.asarray(pattern, dtype=np.uint32), dev),
-                         config.log_blowup, s_m)
-        periodic_cols.append(vals.repeat(N // vals.shape[0]))
-    periodic_stack = (torch.stack(periodic_cols, dim=0) if periodic_cols
-                      else torch.zeros((0, N), dtype=bb.DTYPE, device=dev))
+        quotient_vals = eval_quotient_vm(
+            air, lde, perm_lde, challenges, public_values, apow, sels_m,
+            inv_zh_m, periodic_stack, config.log_blowup)         # (N, 4)
 
-    quotient_vals = eval_quotient_vm(
-        air, lde, perm_lde, challenges, public_values, apow, sels_m,
-        inv_zh_m, periodic_stack, config.log_blowup)         # (N, 4)
+        # 3. split + commit quotient ------------------------------------------
+        q_coeffs = coset_coeffs(quotient_vals, s)                 # (N, 4)
+        chunks = [q_coeffs[k * n : (k + 1) * n] for k in range(config.blowup)]
+        q_cols = torch.cat(
+            [coeffs_to_coset_evals(c, config.log_blowup, s) for c in chunks],
+            dim=1)                                            # (N, blowup*4)
+        quotient_tree = MerkleTree(q_cols)
+        quotient_root = [int(x) for x in quotient_tree.root]
+        ch.observe_many(quotient_root)
+        stages.next("ood_openings")
 
-    # 3. split + commit quotient ------------------------------------------
-    q_coeffs = coset_coeffs(quotient_vals, s)                 # (N, 4)
-    chunks = [q_coeffs[k * n : (k + 1) * n] for k in range(config.blowup)]
-    q_cols = torch.cat(
-        [coeffs_to_coset_evals(c, config.log_blowup, s) for c in chunks],
-        dim=1)                                                # (N, blowup*4)
-    quotient_tree = MerkleTree(q_cols)
-    quotient_root = [int(x) for x in quotient_tree.root]
-    ch.observe_many(quotient_root)
-    _mark("quotient")
+        # 4. out-of-domain openings -------------------------------------------
+        zeta = ch.sample_ext()
+        g_zeta = zeta * g
+        zpows = _zeta_powers(zeta, n, dev)
+        gzpows = _zeta_powers(g_zeta, n, dev)
+        trace_coeffs = intt(trace_m)                               # (n, w)
+        tl = _ext_evals_at(trace_coeffs, zpows)                    # (w, 4)
+        tn = _ext_evals_at(trace_coeffs, gzpows)
+        qe = np.concatenate([_ext_evals_at(c, zpows) for c in chunks], axis=0)
+        if air.perm_width:
+            perm_coeffs = intt(perm_m)
+            pl = _ext_evals_at(perm_coeffs, zpows)                 # (pw, 4)
+            pn = _ext_evals_at(perm_coeffs, gzpows)
+        else:
+            pl = pn = np.zeros((0, 4), dtype=np.uint32)
+        trace_local_evals, trace_next_evals = _fp4_rows(tl), _fp4_rows(tn)
+        perm_local_evals, perm_next_evals = _fp4_rows(pl), _fp4_rows(pn)
+        quotient_evals = _fp4_rows(qe)
+        for v in (trace_local_evals + trace_next_evals + perm_local_evals
+                  + perm_next_evals + quotient_evals):
+            ch.observe_ext(v)
+        stages.next("deep")
 
-    # 4. out-of-domain openings -------------------------------------------
-    zeta = ch.sample_ext()
-    g_zeta = zeta * g
-    zpows = _zeta_powers(zeta, n, dev)
-    gzpows = _zeta_powers(g_zeta, n, dev)
-    trace_coeffs = intt(trace_m)                               # (n, w)
-    tl = _ext_evals_at(trace_coeffs, zpows)                    # (w, 4)
-    tn = _ext_evals_at(trace_coeffs, gzpows)
-    qe = np.concatenate([_ext_evals_at(c, zpows) for c in chunks], axis=0)
-    if air.perm_width:
-        perm_coeffs = intt(perm_m)
-        pl = _ext_evals_at(perm_coeffs, zpows)                 # (pw, 4)
-        pn = _ext_evals_at(perm_coeffs, gzpows)
-    else:
-        pl = pn = np.zeros((0, 4), dtype=np.uint32)
-    trace_local_evals, trace_next_evals = _fp4_rows(tl), _fp4_rows(tn)
-    perm_local_evals, perm_next_evals = _fp4_rows(pl), _fp4_rows(pn)
-    quotient_evals = _fp4_rows(qe)
-    for v in (trace_local_evals + trace_next_evals + perm_local_evals
-              + perm_next_evals + quotient_evals):
-        ch.observe_ext(v)
-    _mark("ood_openings")
+        # 5. DEEP composition ----------------------------------------------
+        # β-power ordering: ζ-group [trace ‖ perm ‖ quotient], then g·ζ-group
+        # [trace ‖ perm] (the verifier mirrors this exactly)
+        beta = ch.sample_ext()
+        pw = air.perm_width
+        w_z = w + pw + q_cols.shape[1]
+        w_gz = w + pw
+        bpow_m = _mont(np_ext_powers(beta, w_z + w_gz).astype(np.uint32), dev)
 
-    # 5. DEEP composition --------------------------------------------------
-    # β-power ordering: ζ-group [trace ‖ perm ‖ quotient], then g·ζ-group
-    # [trace ‖ perm] (the verifier mirrors this exactly)
-    beta = ch.sample_ext()
-    pw = air.perm_width
-    w_z = w + pw + q_cols.shape[1]
-    w_gz = w + pw
-    bpow_m = _mont(np_ext_powers(beta, w_z + w_gz).astype(np.uint32), dev)
+        x_ext = ex.ext_from_base(_mont(sels_np["x"], dev))         # (N, 4)
+        zeta_arr = bb.from_numpy(ex.from_fp4(zeta), dev).expand(N, 4)
+        gzeta_arr = bb.from_numpy(ex.from_fp4(g_zeta), dev).expand(N, 4)
+        inv_x_zeta = ex.ext_inv(ex.ext_sub(x_ext, zeta_arr))
+        inv_x_gzeta = ex.ext_inv(ex.ext_sub(x_ext, gzeta_arr))
+        ev_z = _mont(np.concatenate([tl, pl, qe], axis=0).astype(np.uint32),
+                     dev)
+        ev_gz = _mont(np.concatenate([tn, pn], axis=0).astype(np.uint32), dev)
+        deep = _deep_fn(torch.cat([lde, perm_lde, q_cols], dim=1),
+                        torch.cat([lde, perm_lde], dim=1), bpow_m, ev_z, ev_gz,
+                        inv_x_zeta, inv_x_gzeta)                   # (N, 4)
+        stages.next("fri")
 
-    x_ext = ex.ext_from_base(_mont(sels_np["x"], dev))         # (N, 4)
-    zeta_arr = bb.from_numpy(ex.from_fp4(zeta), dev).expand(N, 4)
-    gzeta_arr = bb.from_numpy(ex.from_fp4(g_zeta), dev).expand(N, 4)
-    inv_x_zeta = ex.ext_inv(ex.ext_sub(x_ext, zeta_arr))
-    inv_x_gzeta = ex.ext_inv(ex.ext_sub(x_ext, gzeta_arr))
-    ev_z = _mont(np.concatenate([tl, pl, qe], axis=0).astype(np.uint32), dev)
-    ev_gz = _mont(np.concatenate([tn, pn], axis=0).astype(np.uint32), dev)
-    deep = _deep_fn(torch.cat([lde, perm_lde, q_cols], dim=1),
-                    torch.cat([lde, perm_lde], dim=1), bpow_m, ev_z, ev_gz,
-                    inv_x_zeta, inv_x_gzeta)                   # (N, 4)
-    _mark("deep")
+        # 6. FRI -----------------------------------------------------------
+        log_N = log_n + config.log_blowup
+        fri_roots, fri_trees, fri_layers, fri_final = _fri_commit(
+            ch, {log_N: deep}, config, log_N)
+        stages.next("queries")
 
-    # 6. FRI ---------------------------------------------------------------
-    log_N = log_n + config.log_blowup
-    fri_roots, fri_trees, fri_layers, fri_final = _fri_commit(
-        ch, {log_N: deep}, config, log_N)
-    _mark("fri")
+        # 7. grinding + queries --------------------------------------------
+        pow_witness, q_indices = _grind_and_sample(ch, config, log_N, dev)
+        qi = torch.tensor(q_indices, dtype=torch.int64, device=dev)
 
-    # 7. grinding + queries ------------------------------------------------
-    pow_witness, q_indices = _grind_and_sample(ch, config, log_N, dev)
-    qi = torch.tensor(q_indices, dtype=torch.int64, device=dev)
+        def _rows(mat):
+            return bb.np_from_mont(bb.to_numpy(mat[qi]))
 
-    def _rows(mat):
-        return bb.np_from_mont(bb.to_numpy(mat[qi]))
-
-    trace_rows, quot_rows = _rows(lde), _rows(q_cols)
-    perm_rows = _rows(perm_lde) if pw else None
-    fri_steps = _fri_steps(fri_layers, fri_trees, q_indices, log_N)
-    queries = []
-    for qi_pos, q in enumerate(q_indices):
-        queries.append(QueryProof(
-            index=q,
-            trace_row=[int(x) for x in trace_rows[qi_pos]],
-            trace_path=_open_path(trace_tree, q),
-            quotient_row=[int(x) for x in quot_rows[qi_pos]],
-            quotient_path=_open_path(quotient_tree, q),
-            fri_steps=fri_steps[qi_pos],
-            perm_row=([int(x) for x in perm_rows[qi_pos]]
-                      if perm_rows is not None else []),
-            perm_path=(_open_path(perm_tree, q) if perm_tree is not None
-                       else []),
-        ))
-    _mark("queries")
+        trace_rows, quot_rows = _rows(lde), _rows(q_cols)
+        perm_rows = _rows(perm_lde) if pw else None
+        fri_steps = _fri_steps(fri_layers, fri_trees, q_indices, log_N)
+        queries = []
+        for qi_pos, q in enumerate(q_indices):
+            queries.append(QueryProof(
+                index=q,
+                trace_row=[int(x) for x in trace_rows[qi_pos]],
+                trace_path=_open_path(trace_tree, q),
+                quotient_row=[int(x) for x in quot_rows[qi_pos]],
+                quotient_path=_open_path(quotient_tree, q),
+                fri_steps=fri_steps[qi_pos],
+                perm_row=([int(x) for x in perm_rows[qi_pos]]
+                          if perm_rows is not None else []),
+                perm_path=(_open_path(perm_tree, q) if perm_tree is not None
+                           else []),
+            ))
     return StarkProof(
         air_name=air.name,
         log_n=log_n,

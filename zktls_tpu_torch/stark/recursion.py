@@ -42,10 +42,10 @@ reads its cache directory from its `cache_dir` argument only (default
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 from ..ops.field_ref import Fp4, P, two_adic_root
+from ..utils.spans import Stages
 from .air import Air, AirBuilder, scalar_vec_hooks
 from .bus import (
     BUS_SP16_CHAIN,
@@ -1286,30 +1286,23 @@ def recursion_prove(airs: list[Air], proof: MachineProof, binding: bytes,
     `prove_machine`'s stages and the host seconds of `build_program`,
     `outer_chips` (VM and sponge traces) and `vk_from_prog` (the program
     matrix committed again for the vk, as the reference does)."""
-    def _mark(label, t0):
-        if timings is not None:
-            timings[label] = time.perf_counter() - t0
-
     shape = MachineShape.of(proof)
-    t0 = time.perf_counter()
-    prog = build_program(airs, shape, binding,
-                         public_messages or [], inner_config,
-                         proof=proof,
-                         preprocessed_roots=inner_preprocessed_roots)
-    _mark("build_program", t0)
-    t0 = time.perf_counter()
-    chips = _outer_chips(prog)
-    _mark("outer_chips", t0)
+    with Stages(timings, "build_program") as stages:
+        prog = build_program(airs, shape, binding,
+                             public_messages or [], inner_config,
+                             proof=proof,
+                             preprocessed_roots=inner_preprocessed_roots)
+        stages.next("outer_chips")
+        chips = _outer_chips(prog)
     outer_binding = binding + shape.to_bytes()
     outer = prove_machine(
         chips, binding=outer_binding,
         config=outer_config or inner_config, device=device,
         timings=timings, spill_bytes=spill_bytes,
         chunked_deep_bytes=chunked_deep_bytes)
-    t0 = time.perf_counter()
-    vk = _vk_from_prog(prog, shape, outer_config or inner_config,
-                       device=device)
-    _mark("vk_from_prog", t0)
+    with Stages(timings, "vk_from_prog"):
+        vk = _vk_from_prog(prog, shape, outer_config or inner_config,
+                           device=device)
     return vk, outer
 
 
@@ -1373,20 +1366,14 @@ def recursion_prove_bn(airs: list[Air], proof: MachineProof,
     `mimc_s` and `prove_bn_s`."""
     from .machine_bn import prove_machine_bn
 
-    def _mark(label, t0):
-        if timings is not None:
-            timings[label] = time.perf_counter() - t0
-
     shape = MachineShape.of(proof)
-    t0 = time.perf_counter()
-    prog = build_program(airs, shape, binding,
-                         public_messages or [], inner_config,
-                         proof=proof,
-                         preprocessed_roots=inner_preprocessed_roots)
-    _mark("build_program", t0)
-    t0 = time.perf_counter()
-    chips = _outer_chips(prog)
-    _mark("outer_chips", t0)
+    with Stages(timings, "build_program") as stages:
+        prog = build_program(airs, shape, binding,
+                             public_messages or [], inner_config,
+                             proof=proof,
+                             preprocessed_roots=inner_preprocessed_roots)
+        stages.next("outer_chips")
+        chips = _outer_chips(prog)
     outer_binding = binding + shape.to_bytes()
     ocfg = outer_config or inner_config
     roots: dict = {}
