@@ -7,6 +7,9 @@
     proved by the port on the CPU, its bus closed by public messages, is
     accepted by both packages' verify_machine, and a tampered message is
     rejected by both;
+  * its two ModMul chips' perm traces run as torch ops (the XorTableAir's
+    on the host), and the proof's bytes equal those of the same prove
+    with every perm trace on the host;
   * the prover raises without a card unless it is given device="cpu".
 
 Exact equality throughout; no JAX prover runs here."""
@@ -27,10 +30,12 @@ from zktls_tpu_torch.guest.crypto.modmul import ModMulEvent
 from zktls_tpu_torch.models.modmul_chip import modmul_instances
 from zktls_tpu_torch.stark import lowering as tlowering
 from zktls_tpu_torch.stark import machine as tmachine
+from zktls_tpu_torch.stark.air import Air
 from zktls_tpu_torch.stark.bus import BUS_MODMUL, BUS_XOR, MAX_PAYLOAD
 from zktls_tpu_torch.stark.chips import AIRS
 from zktls_tpu_torch.stark.chips.modmul import (
     MODULI_256,
+    ModMulAir,
     modmul_send_payload,
 )
 from zktls_tpu_torch.stark.chips.xor_table import (
@@ -112,9 +117,11 @@ def multi():
                                        publics=[]))
     msgs = [(BUS_MODMUL, modmul_send_payload(*key), -1)]
     msgs += [(BUS_XOR, [x, y, x ^ y], -1) for x, y in pairs]
+    tmachine.reset_perm_trace_paths()
     proof = tmachine.prove_machine(chips, BINDING, StarkConfig(**CFG),
                                    device="cpu").to_bytes()
-    return {"chips": chips, "msgs": msgs, "proof": proof}
+    return {"chips": chips, "msgs": msgs, "proof": proof,
+            "perm_trace_paths": dict(tmachine.perm_trace_paths)}
 
 
 def _tampered(msgs):
@@ -157,6 +164,23 @@ def test_multi_chip_reference_verifier(multi):
     with pytest.raises(JVerificationError, match="bus imbalance"):
         jmachine.verify_machine(airs, mp, BINDING, _tampered(multi["msgs"]),
                                 cfg)
+
+
+def test_multi_chip_perm_trace_paths(multi):
+    """(h) the two ModMul chips' perm traces ran as torch ops, the
+    XorTableAir's on the host."""
+    assert multi["perm_trace_paths"] == {"device": 2, "host": 1}
+
+
+def test_multi_chip_host_perm_traces_same_bytes(multi, monkeypatch):
+    """(h) with ModMulAir's torch perm trace taken away, every chip's perm
+    trace runs on the host and the proof's bytes are the same."""
+    monkeypatch.setattr(ModMulAir, "perm_trace_m", Air.perm_trace_m)
+    tmachine.reset_perm_trace_paths()
+    proof = tmachine.prove_machine(multi["chips"], BINDING,
+                                   StarkConfig(**CFG), device="cpu")
+    assert tmachine.perm_trace_paths == {"device": 0, "host": 3}
+    assert proof.to_bytes() == multi["proof"]
 
 
 def test_prover_needs_a_card_or_cpu(monkeypatch):

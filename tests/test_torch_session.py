@@ -16,6 +16,7 @@ from zktls_tpu.provers import stark as jstark
 from zktls_tpu.stark.bus import delta_powers as jdelta_powers
 from zktls_tpu_torch.core.types import GuestInput as TGuestInput
 from zktls_tpu_torch.guest.program import run_guest as trun_guest
+from zktls_tpu_torch.ops import babybear as bb
 from zktls_tpu_torch.ops.field_ref import Fp4
 from zktls_tpu_torch.provers import stark as tstark
 from zktls_tpu_torch.stark.bus import (
@@ -131,6 +132,20 @@ def test_perm_trace_equals_reference(perms, k):
     reference's."""
     mine, want = perms[k]
     np.testing.assert_array_equal(mine, want)
+
+
+@pytest.mark.parametrize("k", [SESSION_CHIPS.index("ModMul256Air"),
+                               SESSION_CHIPS.index("ModMulRsa2048Air")],
+                         ids=["ModMul256Air", "ModMulRsa2048Air"])
+def test_perm_trace_m_equals_reference(session, perms, k):
+    """(d) the ModMul chips' torch perm trace (Air.perm_trace_m, what the
+    machine prover runs), out of Montgomery form, equals the reference's
+    at the fixed challenges."""
+    c = session["chips"][k]
+    got = c.air.perm_trace_m(c.trace, bb.to_mont(bb.from_numpy(c.trace)),
+                             c.publics, _machine_challenges())
+    np.testing.assert_array_equal(bb.np_from_mont(bb.to_numpy(got)),
+                                  perms[k][1])
 
 
 def test_bus_balances_against_journal(session, perms):

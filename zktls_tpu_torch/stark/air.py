@@ -1,6 +1,6 @@
 """AIR (algebraic intermediate representation) abstraction.
 
-Port copy of zktls_tpu.stark.air, host side only.  An AIR describes one
+Port copy of zktls_tpu.stark.air.  An AIR describes one
 table ("chip"): its column count and a polynomial constraint evaluator
 written once and executed over several algebras:
 
@@ -24,6 +24,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Sequence
 
+from ..ops import babybear as bb
 from ..ops.field_ref import Fp4
 
 __all__ = ["Air", "AirBuilder", "ScalarVec", "scalar_vec_hooks"]
@@ -251,6 +252,18 @@ class Air:
         trace as plain uint32 (n, perm_width).  Called between the two
         commitment rounds; only when perm_width > 0."""
         raise NotImplementedError
+
+    def perm_trace_m(self, main, main_m, public_values, challenges, **kw):
+        """The machine prover's perm trace: generate_perm_trace's values
+        as a Montgomery field tensor (n, perm_width) on main_m's device.
+        main: the plain numpy main trace; main_m: the same trace in
+        Montgomery form on the chip's device; kw: `preprocessed=` for a
+        preprocessed chip.  This version runs generate_perm_trace on the
+        host and uploads its result; a chip may override it with device
+        ops that give the same values."""
+        perm = self.generate_perm_trace(main, public_values, challenges,
+                                        **kw)
+        return bb.to_mont(bb.from_numpy(perm, main_m.device))
 
     def fold_constraints_scalar(self, local: Sequence[Fp4], nxt: Sequence[Fp4],
                                 public: Sequence[int], sels: dict,

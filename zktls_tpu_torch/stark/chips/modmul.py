@@ -44,15 +44,20 @@ front-padded with 0·0 ≡ 0 (mod M₀) events.  Binding each event's operands
 to the consuming chip crosses chips via the bus (round-3 scope note).
 
 Port copy of zktls_tpu.stark.chips.modmul (same names and values; host code
-in numpy).
+in numpy).  The machine prover takes the perm trace from `perm_trace_m`,
+the same values as `generate_perm_trace` computed by torch ops on the
+chip's device.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ...guest.crypto.ec import P256, P384, SECP256K1
-from ...ops.field_ref import P
+from ...ops import babybear as bb
+from ...ops import ext as ex
+from ...ops.field_ref import Fp4, P
 from ..air import Air, AirBuilder
 from ..ext_val import ExtVal
 
@@ -355,6 +360,71 @@ class ModMulAir(Air):
             out[:, 4 * (self.n_pairs + 3):] = acc
         return out
 
+    def perm_trace_m(self, main, main_m, public_values, challenges, **kw):
+        """generate_perm_trace's values in Montgomery form, computed by
+        torch ops on main_m's device from the Montgomery main trace: the
+        same algorithm, its pair inverses one row block at a time (at most
+        _PERM_BLOCK_PAIRS pairs a block, so its temporaries stay small).
+        The running sums are int64 cumsums, exact while n·p < 2^63, and
+        Montgomery form is linear, so they are the Montgomery sums."""
+        n = main_m.shape[0]
+        sl = self.slices
+        npairs = self.n_pairs
+        gamma = _ext_const(challenges[0], main_m.device)
+        two_g = bb.add(gamma, gamma)
+        out = torch.zeros((n, self.perm_width), dtype=bb.DTYPE,
+                          device=main_m.device)
+        term = torch.empty((n, 4), dtype=bb.DTYPE, device=main_m.device)
+        rows = max(1, _PERM_BLOCK_PAIRS // npairs)
+        for r0 in range(0, n, rows):
+            v = main_m[r0 : r0 + rows, : self.n_lookup_values]
+            v1, v2 = v[:, 0::2], v[:, 1::2]
+            w = ex.ext_inv(ex.ext_mul(_ext_minus_base(gamma, v1),
+                                      _ext_minus_base(gamma, v2)))
+            out[r0 : r0 + rows, : 4 * npairs] = w.reshape(-1, 4 * npairs)
+            pair_terms = ex.ext_mul(
+                _ext_minus_base(two_g, bb.add(v1, v2)), w)
+            term[r0 : r0 + rows] = bb.sum_mod(pair_terms, dim=1)
+
+        t_m = bb.to_mont(torch.arange(256, dtype=bb.DTYPE,
+                                      device=main_m.device))
+        inv_tab = ex.ext_inv(_ext_minus_base(gamma, t_m))
+        inv_t = inv_tab[torch.arange(n, device=main_m.device) % 256]
+        mult = main_m[:, sl["mult"].start]
+        term = bb.sub(term, ex.ext_scale(inv_t, mult))
+        out[:, 4 * npairs : 4 * npairs + 4] = inv_t
+        out[:, 4 * (npairs + 1) : 4 * (npairs + 2)] = \
+            torch.cumsum(term, dim=0) % P
+        if self.has_bus and len(challenges) >= 2 + 3 * (self.limbs // 2):
+            from ..bus import BUS_MODMUL
+
+            payload = self._send_payloads_m(main_m)
+            k = payload.shape[1]
+            deltas = torch.stack([_ext_const(c, main_m.device)
+                                  for c in challenges[1 : 1 + k]])
+            fp = bb.sum_mod(bb.mul(payload[:, :, None], deltas[None]), dim=1)
+            g_tag = _ext_const(challenges[0] - Fp4(BUS_MODMUL), main_m.device)
+            inv_send = ex.ext_inv(bb.sub(g_tag, fp))
+            ms = main_m[:, sl["ms"].start]
+            out[:, 4 * (npairs + 2) : 4 * (npairs + 3)] = inv_send
+            out[:, 4 * (npairs + 3):] = \
+                torch.cumsum(ex.ext_scale(inv_send, ms), dim=0) % P
+        return out
+
+    def _send_payloads_m(self, main_m):
+        """_send_payloads from the Montgomery main trace, in Montgomery
+        form: each payload is a combination of trace values with integer
+        weights, which commutes with the Montgomery map."""
+        sl = self.slices
+        weights = torch.arange(len(self.moduli), dtype=bb.DTYPE,
+                               device=main_m.device) + self.class_offset
+        parts = [(main_m[:, sl["f"]] * weights).sum(dim=1, keepdim=True)
+                 % P]
+        for nm in ("a", "b", "r"):
+            byt = main_m[:, sl[nm]]
+            parts.append((byt[:, 0::2] + 256 * byt[:, 1::2]) % P)
+        return torch.cat(parts, dim=1)
+
     def _send_payloads(self, main: np.ndarray) -> np.ndarray:
         """(n, 1 + 3·L/2) BUS_MODMUL payload rows from the main trace."""
         sl = self.slices
@@ -521,6 +591,25 @@ def _batch_conv(x: np.ndarray, y: np.ndarray, L: int) -> np.ndarray:
     for i in range(L):
         out[:, i : i + L] += x[:, i : i + 1] * y
     return out
+
+
+#: pairs of lookup values per row block of ModMulAir.perm_trace_m: its
+#: Fp4 temporaries then stay near 2^21 · 32 B = 64 MiB each.  A session's
+#: ModMul chips (8192 × 142 and 256 × 1278 pairs) take one block each, so
+#: their launches are fewest; larger chips (batches) are cut.
+_PERM_BLOCK_PAIRS = 1 << 21
+
+
+def _ext_const(v, device):
+    """A host Fp4 as a (4,) Montgomery tensor on `device`."""
+    return bb.from_numpy(ex.from_fp4(v), device)
+
+
+def _ext_minus_base(e, x):
+    """e − x as (..., 4) ext values, for an ext constant e (4,) and base
+    values x (...), both in Montgomery form."""
+    return torch.stack([bb.sub(e[0], x)] + [e[i].expand_as(x)
+                                            for i in (1, 2, 3)], dim=-1)
 
 
 # --- width-class singletons -------------------------------------------------

@@ -77,6 +77,7 @@ __all__ = [
     "ChipInstance", "ChipProof", "ChipOpening", "MachineQuery",
     "MachineProof", "prove_machine", "verify_machine", "preprocessed_root",
     "MACHINE_DOMAIN_TAG", "STAGES", "SPILL_BYTES", "CHUNKED_DEEP_BYTES",
+    "perm_trace_paths", "reset_perm_trace_paths",
 ]
 
 MACHINE_DOMAIN_TAG = b"zktls-tpu-machine-v2"
@@ -100,6 +101,16 @@ CHUNKED_DEEP_BYTES = 2e9
 _DEEP_BLOCK_ENTRIES = 1 << 25
 
 _EXT_BASIS = [Fp4(1), Fp4(0, 1), Fp4(0, 0, 1), Fp4(0, 0, 0, 1)]
+
+#: chips whose perm trace stage 2 computed on their device (an AIR class
+#: that overrides Air.perm_trace_m) or on the host, counted per chip and
+#: prove since the last reset_perm_trace_paths()
+perm_trace_paths = {"device": 0, "host": 0}
+
+
+def reset_perm_trace_paths() -> None:
+    for path in perm_trace_paths:
+        perm_trace_paths[path] = 0
 
 
 @dataclass
@@ -485,30 +496,32 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
                 kw = ({"preprocessed": inst.preprocessed}
                       if inst.preprocessed is not None else {})
                 with span(f"zktls.perm_trace:{air.name}"):
-                    perm_np = air.generate_perm_trace(
-                        inst.trace, [int(v) % P for v in inst.publics],
-                        challenges, **kw)
-                if perm_np.shape != (n, air.perm_width):
+                    perm_m = air.perm_trace_m(
+                        inst.trace, d["trace_m"],
+                        [int(v) % P for v in inst.publics], challenges, **kw)
+                if tuple(perm_m.shape) != (n, air.perm_width):
                     raise ValueError(f"{air.name}: bad perm trace shape")
-                perm_m = _mont(perm_np, d["dev"])
+                perm_trace_paths[
+                    "host" if type(air).perm_trace_m is Air.perm_trace_m
+                    else "device"] += 1
                 perm_lde = coset_lde(perm_m, config.log_blowup, d["s"])
                 perm_tree = MerkleTree(perm_lde, defer=defer)
-                # the accumulator is the LAST extension element of the perm
-                # trace; its final row is the chip's cumulative bus sum
-                bus_sum = ([int(v) for v in perm_np[-1, -4:]]
-                           if getattr(air, "has_bus", False) else [0, 0, 0, 0])
             else:
                 perm_m = torch.zeros((n, 0), dtype=bb.DTYPE, device=d["dev"])
                 perm_lde = torch.zeros((n << config.log_blowup, 0),
                                        dtype=bb.DTYPE, device=d["dev"])
                 perm_tree = None
-                bus_sum = [0, 0, 0, 0]
             d.update(perm_m=perm_m, perm_lde=perm_lde, perm_tree=perm_tree,
-                     perm_root=None, bus_sum=bus_sum)
+                     perm_root=None, bus_sum=[0, 0, 0, 0])
         for inst, log_n in metas:
             d = per[inst.air.name]
             if inst.air.perm_width:
                 d["perm_root"] = [int(x) for x in d["perm_tree"].root]
+                # the accumulator is the LAST extension element of the perm
+                # trace; its final row is the chip's cumulative bus sum
+                if inst.air.has_bus:
+                    d["bus_sum"] = [int(v) for v in bb.np_from_mont(
+                        bb.to_numpy(d["perm_m"][-1, -4:]))]
                 ch.observe_many(d["perm_root"])
                 ch.observe_many(d["bus_sum"])
             _spill(d, ("lde", "pre_lde", "perm_lde"), spill_bytes, d["dev"])
