@@ -3,9 +3,11 @@ CPU: a small machine prove under `torch.profiler` opens its stage spans in
 `STAGES` order, one after another, each as long as its `timings` entry,
 with the perm-trace and constraint-VM spans inside their stages; a warm
 prove lowers no AIR again; `StarkGuestProver.prove` opens the replay,
-build and encode spans; the other provers keep their `timings` keys; the
-prover service logs each request and runs one prove at a time.  No span
-is a user-scope range, so none has a copy on a device's timeline."""
+build and encode spans; the AES builder's span names the chip it builds
+(c02f, 0x1302, and both in one batch); the other provers keep their
+`timings` keys; the prover service logs each request and runs one prove
+at a time.  No span is a user-scope range, so none has a copy on a
+device's timeline."""
 
 import http.client
 import logging
@@ -18,6 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from zktls_tpu_torch.core.types import GuestInput
 from zktls_tpu_torch.guest import roots
+from zktls_tpu_torch.guest.program import run_guest
 from zktls_tpu_torch.provers import service
 from zktls_tpu_torch.provers import stark as tstark
 from zktls_tpu_torch.stark import lowering, recursion
@@ -298,6 +301,43 @@ def test_guest_prover_spans_replay_build_and_encode(anchored, monkeypatch):
     # one span per builder; ModMulAir names every ModMul width's builder
     assert {n.removeprefix("zktls.build:") for _, _, n in built} == \
         {n for n in seen if not n.startswith("ModMul")} | {"ModMulAir"}
+
+
+#: the c02f build's `zktls.build:` spans, in the order they open
+C02F_BUILD_SPANS = ["KeyScheduleAir", "Sha256Air", "Aes128Air", "GhashAir",
+                    "GcmControlAir", "StreamParserAir", "GcmDataAir",
+                    "XorTableAir", "KeccakAir", "EcScheduleAir", "ModMulAir"]
+
+
+@pytest.fixture(scope="module")
+def replays():
+    """The port's replays of the committed c02f and 0x1302 sessions."""
+    return {name: run_guest(GuestInput.from_cbor(
+        SESSIONS[name].guest_input.read_bytes()), require_trust_anchor=False)
+        for name in ("c02f", "1302")}
+
+
+@pytest.mark.parametrize("sessions, aes", [
+    (("c02f",), ["Aes128Air"]), (("1302",), ["Aes256Air"]),
+    (("c02f", "1302"), ["Aes128Air", "Aes256Air"])],
+    ids=["c02f", "1302", "c02f+1302"])
+def test_the_aes_builder_span_names_the_chip_it_builds(replays, sessions,
+                                                       aes):
+    """16-byte keys build under `zktls.build:Aes128Air`, 32-byte keys under
+    `zktls.build:Aes256Air`, a mixed batch opens both; c02f's build spans
+    are unchanged."""
+    outs = [replays[name] for name in sessions]
+    out = outs[0] if len(outs) == 1 else tstark.merge_guest_outputs(outs)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        chips = tstark.build_chip_instances(out)
+    built = [n.removeprefix("zktls.build:") for _, _, n in _spans(prof)
+             if n.startswith("zktls.build:")]
+    assert [n for n in built if n.startswith("Aes")] == aes
+    assert [c.air.name for c in chips if c.air.name.startswith("Aes")] == aes
+    if sessions == ("c02f",):
+        assert built == C02F_BUILD_SPANS
+    if "1302" in sessions:
+        assert "Sha512Air" in built
 
 
 class _SlowProver:

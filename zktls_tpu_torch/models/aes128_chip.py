@@ -12,6 +12,7 @@ from __future__ import annotations
 from ..guest.crypto.gcm import GCMEvent
 from ..stark.chips.aes128 import Aes128Air, aes128_trace
 from ..stark.machine import ChipInstance
+from ..utils.spans import span
 
 __all__ = ["aes128_instance", "aes128_air"]
 
@@ -42,7 +43,8 @@ def aes_instances(events: list[GCMEvent]) -> list[ChipInstance]:
     """Route each GCM event to the AES chip matching its key size
     (AES-128 or AES-256 — SHA-384 suites use 32-byte keys); event ids
     stay the global enumeration, so the control chip's receives match
-    regardless of which chip served the block."""
+    regardless of which chip served the block.  Each chip's trace is
+    built inside its own `zktls.build:<AirName>` span."""
     from ..stark.chips.aes256 import Aes256Air, aes256_trace
 
     blocks = aes_event_blocks(events)
@@ -50,10 +52,12 @@ def aes_instances(events: list[GCMEvent]) -> list[ChipInstance]:
     b256 = [b for b in blocks if len(b[1]) == 32]
     out = []
     if b128:
-        trace, publics = aes128_trace(b128)
+        with span("zktls.build:Aes128Air"):
+            trace, publics = aes128_trace(b128)
         out.append(ChipInstance(air=_AIR, trace=trace, publics=publics))
     if b256:
-        trace, publics = aes256_trace(b256)
+        with span("zktls.build:Aes256Air"):
+            trace, publics = aes256_trace(b256)
         out.append(ChipInstance(air=Aes256Air(), trace=trace,
                                 publics=publics))
     return out

@@ -215,8 +215,7 @@ def build_chip_instances(out) -> list[ChipInstance]:
                                   publics=p512))
     if out.replay.gcm_events:
         events = out.replay.gcm_events
-        with span("zktls.build:Aes128Air"):
-            chips.extend(aes_instances(events))
+        chips.extend(aes_instances(events))
         with span("zktls.build:GhashAir"):
             chips.append(ghash_instance(events))
         with span("zktls.build:GcmControlAir"):
