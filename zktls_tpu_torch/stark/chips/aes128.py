@@ -446,6 +446,76 @@ class Aes128Air(Air):
 # ---------------------------------------------------------------------------
 
 
+SBOX_U8 = np.array(SBOX, dtype=np.uint8)
+
+
+def byte_bits(byte_rows: np.ndarray) -> np.ndarray:
+    """(n, 8·w) bit columns of (n, w) uint8 rows: column 8·i + k holds bit
+    k of byte i, the chips' bit order."""
+    return np.unpackbits(byte_rows, axis=1, bitorder="little")
+
+
+def be16_limbs(byte_rows: np.ndarray) -> np.ndarray:
+    """(n, w/2) big-endian 16-bit limbs of (n, w) uint8 rows."""
+    return (byte_rows[:, 0::2].astype(np.uint32) << 8) | byte_rows[:, 1::2]
+
+
+def _mix_term_index() -> np.ndarray:
+    """(128, 7): the sb bit index of each xor term of MixColumns output bit
+    8·j + k, in `_mix_terms` order; a bit with five terms points its last
+    two at column 128, which is always zero."""
+    idx = np.full((128, 7), 128, dtype=np.int64)
+    for j in range(16):
+        for k in range(8):
+            terms = _mix_terms(lambda bi, kk: 8 * bi + kk, j, k)
+            idx[8 * j + k, : len(terms)] = terms
+    return idx
+
+
+_MIX_TERM_INDEX = _mix_term_index()
+
+
+def fill_round_columns(trace, L, st, rk, ks_in, ks_xor) -> None:
+    """Write the columns every AES chip's rows share, for all rows at once:
+    st, rk, sb = SBOX[st], the MixColumns stages m1/m2/m3 over sb, ks_sb =
+    SBOX[ks_in] and ks1 = ks_xor ^ ks_sb.  Arguments are (n, 16) or (n, 4)
+    uint8 byte rows.  Zero terms leave an xor stage unchanged, so the
+    seven-term `_stage_values` gives every bit its own stages."""
+    sb = SBOX_U8[st]
+    trace[:, L["st"]] = byte_bits(st)
+    trace[:, L["rk"]] = byte_bits(rk)
+    sb_bits = byte_bits(sb)
+    trace[:, L["sb"]] = sb_bits
+    terms = np.pad(sb_bits, ((0, 0), (0, 1))).astype(np.int32)
+    terms = terms[:, _MIX_TERM_INDEX]
+    stages = _stage_values([terms[:, :, i] for i in range(7)])
+    for name, m in zip(("m1", "m2", "m3"), stages):
+        trace[:, L[name]] = m
+    ks_sb = SBOX_U8[ks_in]
+    trace[:, L["ks_sb"]] = byte_bits(ks_sb)
+    trace[:, L["ks1"]] = byte_bits(ks_xor ^ ks_sb)
+
+
+def sbox_multiplicities(looked_up: np.ndarray, n: int) -> np.ndarray:
+    """The (n,) mult column: how often each byte of `looked_up` (every
+    S-box input of the trace) occurs, spread over the table's n/256
+    repeats — row rep·256 + x holds count(x) // reps, plus one for the
+    first count(x) % reps repeats."""
+    counts = np.bincount(looked_up.reshape(-1), minlength=256)
+    reps = n // 256
+    rep = np.arange(reps)[:, None]
+    return (counts // reps + (rep < counts % reps)).reshape(-1)
+
+
+def group_rows(n_real: int, pad: int) -> np.ndarray:
+    """Row sources of a trace built from one padding group (rows 0..15)
+    and the real groups after it: `pad` copies of the padding group,
+    then the real rows in order."""
+    return np.concatenate([
+        np.tile(np.arange(ROWS_PER_BLOCK), pad),
+        np.arange(ROWS_PER_BLOCK, ROWS_PER_BLOCK * (n_real + 1))])
+
+
 def aes128_trace(blocks: list[tuple[int, bytes, bytes]], min_log_n: int = 8):
     """Build the chip trace from (event_id, key, input_block) triples —
     every block encryption a GCM event performs: E_K(0) = H, E_K(J0) =
@@ -461,80 +531,35 @@ def aes128_trace(blocks: list[tuple[int, bytes, bytes]], min_log_n: int = 8):
     n_rows = n_real * ROWS_PER_BLOCK
     log_n = max(min_log_n, (n_rows - 1).bit_length())
     n = 1 << log_n
-    n_groups = n // ROWS_PER_BLOCK
-    pad = n_groups - n_real
-    all_blocks = [(0, b"\x00" * 16, b"\x00" * 16)] * pad + list(blocks)
+    pad = n // ROWS_PER_BLOCK - n_real
+    # group 0: the zero-key padding group, built once
+    groups = [(0, b"\x00" * 16, b"\x00" * 16)] + list(blocks)
+    n_idle = ROWS_PER_BLOCK - N_ROUNDS
+    st, rk = [], []
+    for _eid, key, pt in groups:
+        aes = AES(key)
+        _ct, states = aes.encrypt_block_trace(pt)
+        # rows 0..9 enter rounds 1..10, rows 10..15 carry the output;
+        # rk[10] sits on row 10, the idle rows after it hold zero keys
+        st.append(b"".join(states[:N_ROUNDS]) + states[N_ROUNDS] * n_idle)
+        rk.append(b"".join(aes.round_keys) + bytes(16 * (n_idle - 1)))
+    st = np.frombuffer(b"".join(st), dtype=np.uint8).reshape(-1, 16)
+    rk = np.frombuffer(b"".join(rk), dtype=np.uint8).reshape(-1, 16)
 
     L = LAYOUT
-    trace = np.zeros((n, L.width), dtype=np.uint32)
+    built = np.zeros((len(st), L.width), dtype=np.uint32)
+    fill_round_columns(built, L, st, rk, rk[:, ROT], rk[:, :4])
+    g = np.repeat(np.arange(len(groups)), ROWS_PER_BLOCK)
+    built[:, L["eid"].start] = np.array([b[0] for b in groups])[g]
+    built[ROWS_PER_BLOCK:, L["ms"].start] = 1
+    for name, at in (("key", 1), ("inb", 2)):
+        data = b"".join(b[at] for b in groups)
+        built[:, L[name]] = be16_limbs(
+            np.frombuffer(data, dtype=np.uint8).reshape(-1, 16))[g]
 
-    def set_bits(row, start, data_bytes):
-        for i, byte in enumerate(data_bytes):
-            for k in range(8):
-                trace[row, start + 8 * i + k] = (byte >> k) & 1
-
-    def fill_defs(row, st_bytes, rk_bytes):
-        sb_bytes = [SBOX[x] for x in st_bytes]
-        set_bits(row, L["sb"].start, sb_bytes)
-        for j in range(16):
-            for k in range(8):
-                terms = _mix_terms(
-                    lambda bi, kk: (sb_bytes[bi] >> kk) & 1, j, k)
-                m1, m2, m3 = _stage_values(terms)
-                trace[row, L["m1"].start + 8 * j + k] = m1
-                trace[row, L["m2"].start + 8 * j + k] = m2
-                trace[row, L["m3"].start + 8 * j + k] = m3
-        ks_sb = [SBOX[rk_bytes[s]] for s in ROT]
-        set_bits(row, L["ks_sb"].start, ks_sb)
-        ks1 = [rk_bytes[t] ^ ks_sb[t] for t in range(4)]
-        set_bits(row, L["ks1"].start, ks1)
-        return sb_bytes
-
-    for gidx, (eid, key, pt) in enumerate(all_blocks):
-        base = gidx * ROWS_PER_BLOCK
-        rows = slice(base, base + ROWS_PER_BLOCK)
-        is_pad = gidx < pad
-        trace[rows, L["eid"].start] = eid
-        trace[rows, L["ms"].start] = 0 if is_pad else 1
-        for j in range(8):
-            trace[rows, L["key"].start + j] = (key[2 * j] << 8) | key[2 * j + 1]
-            trace[rows, L["inb"].start + j] = (pt[2 * j] << 8) | pt[2 * j + 1]
-        aes = AES(key)
-        rks = aes.round_keys  # 11 × 16 bytes
-        _ct, states = aes.encrypt_block_trace(pt)
-        for r in range(N_ROUNDS):
-            row = base + r
-            set_bits(row, L["st"].start, states[r])
-            set_bits(row, L["rk"].start, rks[r])
-            fill_defs(row, states[r], rks[r])
-        out_state = states[10]
-        for r in range(N_ROUNDS, ROWS_PER_BLOCK):
-            row = base + r
-            rk_bytes = rks[10] if r == N_ROUNDS else b"\x00" * 16
-            set_bits(row, L["st"].start, out_state)
-            set_bits(row, L["rk"].start, rk_bytes)
-            fill_defs(row, out_state, rk_bytes)
-
-    # lookup multiplicities: count every (input) byte the trace looks up
-    counts = np.zeros(256, dtype=np.uint64)
-    for row in range(n):
-        for i in range(16):
-            sl = L["st"].start + 8 * i
-            x = int(sum(int(b) << k for k, b in enumerate(
-                trace[row, sl : sl + 8])))
-            counts[x] += 1
-        for t in range(4):
-            sl = L["rk"].start + 8 * ROT[t]
-            x = int(sum(int(b) << k for k, b in enumerate(
-                trace[row, sl : sl + 8])))
-            counts[x] += 1
-    reps = n // 256
-    # spread each slot's count over its repeated table rows (row % 256)
-    for slot in range(256):
-        c = int(counts[slot])
-        for rep in range(reps):
-            row = rep * 256 + slot
-            take = min(c, 2**30)
-            share = c // reps + (1 if rep < c % reps else 0)
-            trace[row, L["mult"].start] = share
+    rows = group_rows(n_real, pad)
+    trace = built[rows]
+    # lookup multiplicities: every state byte and key-schedule input
+    trace[:, L["mult"].start] = sbox_multiplicities(
+        np.concatenate([st[rows], rk[rows][:, ROT]], axis=1), n)
     return trace, []

@@ -37,9 +37,13 @@ from .aes128 import (
     ROT,
     SHIFT_SRC,
     _mix_terms,
-    _stage_values,
     _xor2,
     _xor3,
+    be16_limbs,
+    byte_bits,
+    fill_round_columns,
+    group_rows,
+    sbox_multiplicities,
 )
 
 __all__ = ["Aes256Air", "aes256_trace", "ROWS_PER_BLOCK"]
@@ -398,91 +402,44 @@ def aes256_trace(blocks: list[tuple[int, bytes, bytes]],
     n_rows = n_real * ROWS_PER_BLOCK
     log_n = max(min_log_n, (n_rows - 1).bit_length())
     n = 1 << log_n
-    n_groups = n // ROWS_PER_BLOCK
-    pad = n_groups - n_real
-    all_blocks = [(0, b"\x00" * 32, b"\x00" * 16)] * pad + list(blocks)
-
-    L = LAYOUT
-    trace = np.zeros((n, L.width), dtype=np.uint32)
-
-    def set_bits(row, start, data_bytes):
-        for i, byte in enumerate(data_bytes):
-            for k in range(8):
-                trace[row, start + 8 * i + k] = (byte >> k) & 1
-
-    def fill_defs(row, st_bytes, rk_bytes, rkp_bytes, r):
-        sb_bytes = [SBOX[x] for x in st_bytes]
-        set_bits(row, L["sb"].start, sb_bytes)
-        for j in range(16):
-            for k in range(8):
-                terms = _mix_terms(
-                    lambda bi, kk: (sb_bytes[bi] >> kk) & 1, j, k)
-                m1, m2, m3 = _stage_values(terms)
-                trace[row, L["m1"].start + 8 * j + k] = m1
-                trace[row, L["m2"].start + 8 * j + k] = m2
-                trace[row, L["m3"].start + 8 * j + k] = m3
-        if r is not None and r % 2 == 1 and r < N_ROUNDS:
-            ks_sb = [SBOX[rk_bytes[s]] for s in ROT]
-        else:
-            ks_sb = [SBOX[rk_bytes[12 + t]] for t in range(4)]
-        set_bits(row, L["ks_sb"].start, ks_sb)
-        ks1 = [rkp_bytes[t] ^ ks_sb[t] for t in range(4)]
-        set_bits(row, L["ks1"].start, ks1)
-
-    for gidx, (eid, key, pt) in enumerate(all_blocks):
-        base = gidx * ROWS_PER_BLOCK
-        rows = slice(base, base + ROWS_PER_BLOCK)
-        is_pad = gidx < pad
-        trace[rows, L["eid"].start] = eid
-        trace[rows, L["ms"].start] = 0 if is_pad else 1
-        for j in range(8):
-            trace[rows, L["key"].start + j] = \
-                (key[2 * j] << 8) | key[2 * j + 1]
-            trace[rows, L["key2"].start + j] = \
-                (key[16 + 2 * j] << 8) | key[16 + 2 * j + 1]
-            trace[rows, L["inb"].start + j] = \
-                (pt[2 * j] << 8) | pt[2 * j + 1]
+    pad = n // ROWS_PER_BLOCK - n_real
+    # group 0: the zero-key padding group, built once
+    groups = [(0, b"\x00" * 32, b"\x00" * 16)] + list(blocks)
+    zero = bytes(16)
+    st, rk, rkp = [], [], []
+    for _eid, key, pt in groups:
         aes = AES(key)
         rks = aes.round_keys  # 15 × 16 bytes
         _ct, states = aes.encrypt_block_trace(pt)
-        for r in range(N_ROUNDS):
-            row = base + r
-            rkp = rks[r - 1] if r > 0 else b"\x00" * 16
-            set_bits(row, L["st"].start, states[r])
-            set_bits(row, L["rk"].start, rks[r])
-            set_bits(row, L["rkp"].start, rkp)
-            fill_defs(row, states[r], rks[r], rkp, r)
-        out_state = states[N_ROUNDS]
-        for r in range(N_ROUNDS, ROWS_PER_BLOCK):
-            row = base + r
-            rk_bytes = rks[N_ROUNDS] if r == N_ROUNDS else b"\x00" * 16
-            rkp = rks[N_ROUNDS - 1] if r == N_ROUNDS else b"\x00" * 16
-            set_bits(row, L["st"].start, out_state)
-            set_bits(row, L["rk"].start, rk_bytes)
-            set_bits(row, L["rkp"].start, rkp)
-            fill_defs(row, out_state, rk_bytes, rkp, None)
+        # rows 0..13 enter rounds 1..14, rows 14..15 carry the output;
+        # rk[14] sits on row 14 with its shadow rk[13], row 15 is zero
+        st.append(b"".join(states[:N_ROUNDS]) + states[N_ROUNDS] * 2)
+        rk.append(b"".join(rks) + zero)
+        rkp.append(zero + b"".join(rks[:N_ROUNDS]) + zero)
+    st, rk, rkp = (np.frombuffer(b"".join(x), dtype=np.uint8).reshape(-1, 16)
+                   for x in (st, rk, rkp))
+    # odd active rows apply SubWord∘RotWord, the others plain SubWord
+    r = np.arange(len(st)) % ROWS_PER_BLOCK
+    odd = ((r % 2 == 1) & (r < N_ROUNDS))[:, None]
+    ks_in = np.where(odd, rk[:, ROT], rk[:, 12:16])
 
-    # lookup multiplicities
-    counts = np.zeros(256, dtype=np.uint64)
-    rowm = np.arange(n) % ROWS_PER_BLOCK
-    for row in range(n):
-        for i in range(16):
-            sl = L["st"].start + 8 * i
-            x = int(sum(int(b) << k for k, b in enumerate(
-                trace[row, sl : sl + 8])))
-            counts[x] += 1
-        odd = rowm[row] % 2 == 1 and rowm[row] < N_ROUNDS
-        for t in range(4):
-            src = ROT[t] if odd else 12 + t
-            sl = L["rk"].start + 8 * src
-            x = int(sum(int(b) << k for k, b in enumerate(
-                trace[row, sl : sl + 8])))
-            counts[x] += 1
-    reps = n // 256
-    for slot in range(256):
-        c = int(counts[slot])
-        for rep in range(reps):
-            row = rep * 256 + slot
-            share = c // reps + (1 if rep < c % reps else 0)
-            trace[row, L["mult"].start] = share
+    L = LAYOUT
+    built = np.zeros((len(st), L.width), dtype=np.uint32)
+    fill_round_columns(built, L, st, rk, ks_in, rkp[:, :4])
+    built[:, L["rkp"]] = byte_bits(rkp)
+    g = np.repeat(np.arange(len(groups)), ROWS_PER_BLOCK)
+    built[:, L["eid"].start] = np.array([b[0] for b in groups])[g]
+    built[ROWS_PER_BLOCK:, L["ms"].start] = 1
+    keys = np.frombuffer(b"".join(b[1] for b in groups),
+                         dtype=np.uint8).reshape(-1, 32)
+    inb = np.frombuffer(b"".join(b[2] for b in groups),
+                        dtype=np.uint8).reshape(-1, 16)
+    built[:, L["key"]] = be16_limbs(keys[:, :16])[g]
+    built[:, L["key2"]] = be16_limbs(keys[:, 16:])[g]
+    built[:, L["inb"]] = be16_limbs(inb)[g]
+
+    rows = group_rows(n_real, pad)
+    trace = built[rows]
+    trace[:, L["mult"].start] = sbox_multiplicities(
+        np.concatenate([st[rows], ks_in[rows]], axis=1), n)
     return trace, []

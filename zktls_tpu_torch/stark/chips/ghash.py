@@ -397,9 +397,29 @@ class GhashAir(Air):
 # ---------------------------------------------------------------------------
 
 
-def _int_to_bits(v: int) -> np.ndarray:
-    """(128,) uint32 array, index k = coefficient of 2^k."""
-    return np.array([(v >> k) & 1 for k in range(128)], dtype=np.uint32)
+def _ints_to_bits(values) -> np.ndarray:
+    """(len, 128) uint8 bit columns of 128-bit ints: column k holds the
+    coefficient of 2^k."""
+    data = b"".join(v.to_bytes(16, "little") for v in values)
+    return np.unpackbits(np.frombuffer(data, dtype=np.uint8).reshape(-1, 16),
+                         axis=1, bitorder="little")
+
+
+def _h_multiples(h: int) -> list[int]:
+    """The v column of a group keyed by h, row by row: one GCM xtime per
+    row, v' = (v >> 1) ⊕ v_0·(0xE1 << 120)."""
+    e1 = 0xE1 << 120
+    vs = [h]
+    for _ in range(ROWS_PER_BLOCK - 1):
+        v = vs[-1]
+        vs.append((v >> 1) ^ (e1 if v & 1 else 0))
+    return vs
+
+
+# row r of a group holds x << r: column k reads x's bit k − r, or the
+# zero column 128 where k < r
+_SHIFT = np.arange(128)[None, :] - np.arange(ROWS_PER_BLOCK)[:, None]
+_SHIFT = np.where(_SHIFT >= 0, _SHIFT, 128)
 
 
 def ghash_trace(events: list[tuple[int, int, list[int], int]],
@@ -415,64 +435,58 @@ def ghash_trace(events: list[tuple[int, int, list[int], int]],
     """
     if not events or not any(blks for _e, _h, blks, _m in events):
         raise ValueError("need at least one event with one block")
-    # (eid, h, x_in, es, live, mask, ev_end, cbi, nlb)
+    # one group per block: (eid, h, x_in, es, mask, nlb, cbi); an event's
+    # last block is its length block, where the event ends
     groups: list[tuple] = []
     for eid, h, blocks, mask in events:
         y = 0
         for gi_, blk in enumerate(blocks):
             last = 1 if gi_ == len(blocks) - 1 else 0
-            groups.append([eid, h, y ^ blk, 1 if gi_ == 0 else 0, 1, mask,
-                           last, gi_, last])
+            groups.append((eid, h, y ^ blk, 1 if gi_ == 0 else 0, mask,
+                           last, gi_))
             y = _ghash_mul_ref(y ^ blk, h)
 
     n_rows = len(groups) * ROWS_PER_BLOCK
     log_n = max(min_log_n, (n_rows - 1).bit_length())
     n = 1 << log_n
     pad = n // ROWS_PER_BLOCK - len(groups)
-    groups = [[0, 0, 0, 1, 0, 0, 1, 0, 1]] * pad + groups
-
+    # padding: dead events that start and end at once, all else zero
+    groups = [(0, 0, 0, 1, 0, 1, 0)] * pad + groups
     L = LAYOUT
     trace = np.zeros((n, L.width), dtype=np.uint32)
-    E1 = 0xE1 << 120
-    M128 = (1 << 128) - 1
-    n_groups = len(groups)
-    for gidx, (eid, h, x_in, es, live, mask, ev_end, cbi,
-               nlb) in enumerate(groups):
-        base = gidx * ROWS_PER_BLOCK
-        acc, v, x = 0, h, x_in
-        h_bits = _int_to_bits(h)
-        mask_bits = _int_to_bits(mask)
-        nxt = groups[(gidx + 1) % n_groups]
-        es_next, nlb_next = nxt[3], nxt[8]
-        for r in range(ROWS_PER_BLOCK):
-            row = base + r
-            bit = (x >> 127) & 1
-            t = acc ^ (v if bit else 0)
-            trace[row, L["acc"]] = _int_to_bits(acc)
-            trace[row, L["v"]] = _int_to_bits(v)
-            trace[row, L["x"]] = _int_to_bits(x)
-            trace[row, L["t"]] = _int_to_bits(t)
-            trace[row, L["h"]] = h_bits
-            trace[row, L["mask"]] = mask_bits
-            trace[row, L["eid"].start] = eid
-            trace[row, L["live"].start] = live
-            trace[row, L["cbi"].start] = cbi
-            trace[row, L["nlb"].start] = nlb
-            if r == 0:
-                trace[row, L["es"].start] = es
-                trace[row, L["m_start"].start] = es * live
-            if r == ROWS_PER_BLOCK - 1:
-                trace[row, L["m_end"].start] = ev_end * live
-                q = (1 - es_next) * (1 - nlb_next)
-                q2 = (1 - es_next) * nlb_next
-                trace[row, L["q"].start] = q
-                trace[row, L["q2"].start] = q2
-                trace[row, L["m_ct"].start] = q * live
-                trace[row, L["m_len"].start] = q2 * live
-            acc = t
-            v = (v >> 1) ^ (E1 if v & 1 else 0)
-            x = (x << 1) & M128
+    grp = trace.reshape(-1, ROWS_PER_BLOCK, L.width)  # (group, row, col)
 
+    eid, es, nlb, cbi = np.array([(g[0], g[3], g[5], g[6]) for g in groups],
+                                 dtype=np.uint32).T
+    live = (np.arange(len(groups)) >= pad).astype(np.uint32)
+    es_next, nlb_next = np.roll(es, -1), np.roll(nlb, -1)
+    q, q2 = (1 - es_next) * (1 - nlb_next), (1 - es_next) * nlb_next
+    every, first, last = slice(None), slice(0, 1), slice(-1, None)
+    for name, at, col in (
+            ("eid", every, eid), ("live", every, live), ("cbi", every, cbi),
+            ("nlb", every, nlb), ("es", first, es),
+            ("m_start", first, es * live), ("m_end", last, nlb * live),
+            ("q", last, q), ("q2", last, q2), ("m_ct", last, q * live),
+            ("m_len", last, q2 * live)):
+        grp[:, at, L[name].start] = col[:, None]
+
+    # the real groups' multiplications z = x·v, every row at once: x
+    # shifts left a bit a row, the row consumes its top bit, t = acc ⊕
+    # x_127·v accumulates and acc is the previous row's t
+    real = groups[pad:]
+    hs = {h: i for i, h in enumerate(dict.fromkeys(g[1] for g in real))}
+    v_of_h = _ints_to_bits(
+        [v for h in hs for v in _h_multiples(h)]).reshape(len(hs), -1, 128)
+    v = v_of_h[[hs[g[1]] for g in real]]
+    x = np.pad(_ints_to_bits([g[2] for g in real]), ((0, 0), (0, 1)))
+    x = x[:, _SHIFT]
+    t = np.bitwise_xor.accumulate(v * x[:, :, 127:], axis=1)
+    acc = np.zeros_like(t)
+    acc[:, 1:] = t[:, :-1]
+    mask = _ints_to_bits([g[4] for g in real])[:, None]
+    for name, bits in (("acc", acc), ("v", v), ("x", x), ("t", t),
+                       ("h", v[:, :1]), ("mask", mask)):
+        grp[pad:, :, L[name]] = bits
     return trace, []
 
 
