@@ -91,10 +91,10 @@ without printing a result:
      quotient at 2^25 rows; the sponge chips') and merkle_levels at 2^25
      leaves; StarkGuestProver().compress(journal, proof) on the card with
      the launch counters reset just before and read just after, its
-     build_program, outer_chips, outer prove_machine stages and
-     vk_from_prog seconds, peak device memory, the blob's size and
-     SHA-256 (which must equal COMPRESS_1303_SHA256, the blob of an
-     earlier card run: the compress has no CPU reference at this width);
+     build_program, outer_chips and outer prove_machine stages'
+     seconds, peak device memory, the blob's size and SHA-256 (which
+     must equal COMPRESS_1303_SHA256, the blob of an earlier card run:
+     the compress has no CPU reference at this width);
      the program must have 7,689,048 instructions and the outer
      chips VmAir 8,388,608, Sponge16Air 32,768 and Sponge24Air 65,536 rows
      (workload.COMPRESSES); verify_compressed with a fresh vk cache under
@@ -1010,7 +1010,6 @@ def main() -> int:
         print(f"{tag} outer prove_machine "
               f"{sum(timings[k] for k in STAGES):.2f} s: " + ", ".join(
                   f"{k} {timings[k]:.3f}" for k in STAGES))
-        print(f"{tag} vk_from_prog {timings['vk_from_prog']:.2f} s")
         print(f"{tag} peak device memory {peak:.2f} GiB; blob {len(blob)} "
               f"bytes, sha256 {digest}; K1 launches {launches}, total "
               f"{sum(launches.values())}, plain calls {plain}")

@@ -275,7 +275,7 @@ def compress_sha(args, out: pathlib.Path) -> None:
     print(f"recursion_prove (cpu, {args.threads} threads) "
           f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
               f"{k} {timings[k]:.1f}" for k in
-              ("build_program", "outer_chips", *STAGES, "vk_from_prog")))
+              ("build_program", "outer_chips", *STAGES)))
     print(f"program {vk.n_instrs} instructions, {vk.n_pubs} public inputs; "
           "outer chips " + ", ".join(f"{c.name} 2^{c.log_n}"
                                      for c in outer.chips)

@@ -42,6 +42,11 @@ from zktls_tpu_torch.stark import commit_bn
 from zktls_tpu_torch.stark import recursion as rec
 from zktls_tpu_torch.stark.chips.vm import vm_preprocessed
 from zktls_tpu_torch.stark.config import StarkConfig
+from zktls_tpu_torch.stark.machine import (
+    preprocessed_root,
+    prove_machine,
+    verify_machine,
+)
 from zktls_tpu_torch.stark.machine_bn import (
     MachineProofBN,
     preprocessed_root_bn,
@@ -245,6 +250,34 @@ def test_each_verify_machine_bn_accepts_the_other_and_rejects_tampers(
     bad = MachineProofBN.from_bytes(blob)
     bad.queries[0].openings[0].trace_row[0] ^= 1
     assert _verify_both(bad.to_bytes(), vk) == rejected
+
+
+@pytest.mark.parametrize("scheme", ["poseidon2", "mimc"])
+def test_machine_verifier_rejects_a_duplicated_air_and_a_stray_pre_path(
+        machine, scheme):
+    """The machine verifier, under either commitment: an air list naming a
+    chip twice is refused, and so is a preprocessed path opened on a chip
+    without preprocessed columns."""
+    if scheme == "mimc":
+        blob, _, _, root = machine
+        proof, verify = MachineProofBN.from_bytes(blob), verify_machine_bn
+    else:
+        chips, pre = preprocessed_machine(LOG_N)
+        proof = prove_machine(chips, BINDING, CFG, device="cpu")
+        root = preprocessed_root(FixedMulAir(), pre, LOG_N, LOG_N, CFG,
+                                 device="cpu")
+        verify = verify_machine
+    airs, vk = [FixedMulAir(), FibonacciAir()], {"FixedMulAir": root}
+    assert verify(airs, proof, BINDING, config=CFG, preprocessed_roots=vk)
+    with pytest.raises(VerificationError, match="duplicate airs"):
+        verify(airs + [FibonacciAir()], proof, BINDING, config=CFG,
+               preprocessed_roots=vk)
+    names = [c.name for c in proof.chips]
+    fixed, fib = (proof.queries[0].openings[names.index(n)]
+                  for n in ("FixedMulAir", "FibonacciAir"))
+    fib.pre_path = list(fixed.pre_path)
+    with pytest.raises(VerificationError, match="bad preprocessed row"):
+        verify(airs, proof, BINDING, config=CFG, preprocessed_roots=vk)
 
 
 # ---------------------------------------------------------------------------

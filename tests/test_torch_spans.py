@@ -233,7 +233,7 @@ def _fake_rung(monkeypatch, module, name, key):
     def fake(*args, timings=None, vk_roots=None, **kw):
         timings[key] = 0.0
         if vk_roots is not None:
-            vk_roots["VmAir"] = 0
+            vk_roots["VmAir"] = [0]
         return "outer"
 
     monkeypatch.setattr(module, name, fake)
@@ -248,14 +248,12 @@ def test_recursion_rungs_keep_their_timings_keys(monkeypatch):
     monkeypatch.setattr(recursion, "build_program",
                         lambda *a, **kw: _Prog())
     monkeypatch.setattr(recursion, "_outer_chips", lambda prog: [])
-    monkeypatch.setattr(recursion, "_vk_from_prog", lambda *a, **kw: "vk")
     _fake_rung(monkeypatch, recursion, "prove_machine", "outer")
     _fake_rung(monkeypatch, machine_bn, "prove_machine_bn", "outer_bn")
     tim: dict = {}
-    assert recursion.recursion_prove([], None, b"", timings=tim) == \
-        ("vk", "outer")
-    assert list(tim) == ["build_program", "outer_chips", "outer",
-                         "vk_from_prog"]
+    vk, outer = recursion.recursion_prove([], None, b"", timings=tim)
+    assert (vk.program_root, outer) == ((0,), "outer")
+    assert list(tim) == ["build_program", "outer_chips", "outer"]
     tim = {}
     recursion.recursion_prove_bn([], None, b"", timings=tim)
     assert list(tim) == ["build_program", "outer_chips", "outer_bn"]

@@ -13,8 +13,9 @@ an obvious counterpart:
              constraint-VM lowering, the single-AIR prover/verifier
              (`prover.prove`, `verifier.verify`, `proof.StarkProof`), the
              machine prover/verifier, the recursion rungs (`recursion.py`:
-             compress and shrink) and the shrink's BN254/MiMC-committed
-             machine (`machine_bn.py`, `commit_bn.py`)
+             compress and shrink) and the MiMC commitment scheme the
+             machine prover runs under for the shrink (`machine_bn.py`,
+             `commit_bn.py`)
   parallel/  several devices in one process: the ('seg', 'ntt') mesh
              (`mesh.make_mesh`) and the four-step NTT / coset LDE sharded
              over a mesh axis (`ntt.ntt_sharded`,

@@ -31,9 +31,8 @@ the host functions that took the most time in themselves.
 `compress_1303`, `compress_c02f` (`workload.COMPRESSES`): the session's
 machine proved on the card, then compressed by
 `StarkGuestProver.compress` twice — the first with its seconds per stage
-(`build_program`, `outer_chips`, the outer prove's stages,
-`vk_from_prog`), peak device memory and the process's peak resident
-memory, the outer chips and the blob's size and SHA-256; the second
+(`build_program`, `outer_chips`, the outer prove's stages), peak
+device memory and the process's peak resident memory, the outer chips and the blob's size and SHA-256; the second
 profiled as above (`cprofile`: its host functions; `none`: no second
 compress).
 

@@ -1,7 +1,9 @@
-"""Groth16 wrap of the BN-committed machine STARK: the verifier of
-stark/machine_bn.py arithmetized into R1CS over the BN254 scalar field.
+"""Groth16 wrap of the BN-committed machine STARK: the machine verifier
+under stark/machine_bn.py's MiMC scheme arithmetized into R1CS over the
+BN254 scalar field.
 
-The circuit re-runs verify_machine_bn gate for gate (MiMC transcript +
+The circuit re-runs the verifier body of stark/machine.py under MIMC
+(verify_machine_bn) gate for gate (MiMC transcript +
 Merkle paths natively; Baby-Bear algebra emulated with lazy-reduction
 integer tracking), so a Groth16 proof exists ONLY if a valid shrink-layer
 STARK exists behind the public statement digest.  Combined with the
@@ -831,8 +833,8 @@ def build_stark_wrap_circuit(airs, proof: MachineProofBN, binding: bytes,
             inv_xgz = ctx.ext_inv_witness(
                 ctx.ext_sub(x, g_zetas[cp.name]))
             # the g·ζ group's β powers continue at offset w_z within the
-            # chip's slice (machine_bn mirrors machine.py's global β
-            # budget), so scale num_gz by β^{w_z}
+            # chip's slice (machine.py's global β budget), so scale
+            # num_gz by β^{w_z}
             ew_c = getattr(air, "preprocessed_width", 0)
             w_z_c = air.width + ew_c + air.perm_width + 4 * config.blowup
             gz_shift = _beta_power_const(ctx, bpow_table, beta32, w_z_c)

@@ -38,11 +38,20 @@ FRI is the host-driven fold loop (prover._fri_commit), which gives the
 same bytes as the reference's fused device program (its
 ZKTLS_FUSED_FRI); the quotient is the reference's default, the
 constraint VM (not its ZKTLS_QUOTIENT=xla direct evaluation).
+
+One stage sequence and one verifier serve two commitment schemes, each a
+`Commitment`: POSEIDON2 here (Poseidon2 Merkle trees on the device, the
+Baby-Bear duplex challenger) and machine_bn.MIMC (the shrink layer:
+MP-MiMC trees hashed on the host, the BN254 challenger).  The scheme
+decides the commitments, the transcript's domain tag and root
+observations, grinding and the proof types; every other step is the same
+code for both.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 import torch
@@ -54,6 +63,7 @@ from ..ops.field_ref import Fp4, P, two_adic_root
 from ..ops.merkle import MerkleTree, hash_row_ints, verify_path
 from ..ops.ntt import coeffs_to_coset_evals, coset_coeffs, coset_lde, intt
 from ..utils.spans import Stages, span
+from . import prover
 from .air import Air
 from .bus import MAX_PAYLOAD, bus_term, delta_powers
 from .challenger import Challenger
@@ -71,13 +81,19 @@ from .prover import (
     _open_path,
     _zeta_powers,
 )
-from .verifier import VerificationError, _eval_periodic, _final_low_degree
+from .verifier import (
+    _EXT_BASIS,
+    VerificationError,
+    _eval_periodic,
+    _final_low_degree,
+)
 
 __all__ = [
     "ChipInstance", "ChipProof", "ChipOpening", "MachineQuery",
-    "MachineProof", "prove_machine", "verify_machine", "preprocessed_root",
-    "MACHINE_DOMAIN_TAG", "STAGES", "SPILL_BYTES", "CHUNKED_DEEP_BYTES",
-    "perm_trace_paths", "reset_perm_trace_paths",
+    "MachineProof", "Commitment", "POSEIDON2", "prove_machine",
+    "verify_machine", "preprocessed_root", "MACHINE_DOMAIN_TAG", "STAGES",
+    "SPILL_BYTES", "CHUNKED_DEEP_BYTES", "perm_trace_paths",
+    "reset_perm_trace_paths",
 ]
 
 MACHINE_DOMAIN_TAG = b"zktls-tpu-machine-v2"
@@ -99,8 +115,6 @@ CHUNKED_DEEP_BYTES = 2e9
 #: rows per block of a chunked or streamed DEEP matvec: blocks of at most
 #: this many matrix entries
 _DEEP_BLOCK_ENTRIES = 1 << 25
-
-_EXT_BASIS = [Fp4(1), Fp4(0, 1), Fp4(0, 0, 1), Fp4(0, 0, 0, 1)]
 
 #: chips whose perm trace stage 2 computed on their device (an AIR class
 #: that overrides Air.perm_trace_m) or on the host, counted per chip and
@@ -238,6 +252,68 @@ class MachineProof:
 
 
 # ---------------------------------------------------------------------------
+# commitment schemes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Commitment:
+    """What a machine proof's commitment scheme decides, and nothing else.
+    Two instances: POSEIDON2 below and machine_bn.MIMC."""
+
+    #: the transcript's domain tag, observed first
+    tag: bytes
+    #: () -> a fresh Fiat-Shamir challenger
+    challenger: Callable
+    #: (Montgomery matrix (N, w), defer) -> tree over its rows; defer:
+    #: only enqueue device work, read back at the first root or opening
+    commit: Callable
+    #: tree -> its root, as the proof carries it
+    root: Callable
+    #: (challenger, root)
+    observe_root: Callable
+    #: (challenger, a chip's vk preprocessed root or None), in the header
+    observe_pre_root: Callable
+    #: (tree, leaf index) -> sibling path
+    open: Callable
+    #: (challenger, pow_bits, device) -> proof-of-work witness
+    grind: Callable
+    #: plain row ints -> leaf digest (verifier)
+    leaf_digest: Callable
+    #: (leaf digest, index, path, root) -> bool (verifier)
+    verify_path: Callable
+    #: the proof types: MachineProof, ChipProof, ChipOpening, MachineQuery
+    #: or their machine_bn twins
+    proof: type
+    chip_proof: type
+    opening: type
+    query: type
+
+
+def _merkle_commit(matrix: torch.Tensor, defer: bool) -> MerkleTree:
+    return MerkleTree(matrix, defer=defer)
+
+
+def _observe_pre_root(ch: Challenger, root) -> None:
+    if root:
+        ch.observe_many(root)
+
+
+def _grind(ch: Challenger, pow_bits: int, device) -> int:
+    # looked up at call time, where tests put a spy on it
+    return prover._grind_device(ch, pow_bits, device)
+
+
+POSEIDON2 = Commitment(
+    tag=MACHINE_DOMAIN_TAG, challenger=Challenger, commit=_merkle_commit,
+    root=lambda tree: [int(x) for x in tree.root],
+    observe_root=Challenger.observe_many, observe_pre_root=_observe_pre_root,
+    open=_open_path, grind=_grind, leaf_digest=hash_row_ints,
+    verify_path=verify_path, proof=MachineProof, chip_proof=ChipProof,
+    opening=ChipOpening, query=MachineQuery)
+
+
+# ---------------------------------------------------------------------------
 # shared transcript header
 # ---------------------------------------------------------------------------
 
@@ -248,11 +324,12 @@ def _machine_order(items, log_n_of, name_of):
     return sorted(items, key=lambda it: (-log_n_of(it), name_of(it)))
 
 
-def _observe_header(ch: Challenger, binding: bytes, entries) -> None:
+def _observe_header(commitment: Commitment, ch, binding: bytes,
+                    entries) -> None:
     """entries: (name, log_n, publics, preprocessed_root or None) per chip
     — a chip's vk-committed preprocessed root is bound into the transcript
     before anything is sampled."""
-    ch.observe_bytes(MACHINE_DOMAIN_TAG)
+    ch.observe_bytes(commitment.tag)
     ch.observe_bytes(binding)
     ch.observe(len(entries))
     for name, log_n, publics, pre_root in entries:
@@ -260,11 +337,10 @@ def _observe_header(ch: Challenger, binding: bytes, entries) -> None:
         ch.observe(log_n)
         ch.observe(len(publics))
         ch.observe_many(publics)
-        if pre_root:
-            ch.observe_many(pre_root)
+        commitment.observe_pre_root(ch, pre_root)
 
 
-def _sample_challenges(ch: Challenger) -> list[Fp4]:
+def _sample_challenges(ch) -> list[Fp4]:
     gamma = ch.sample_ext()
     delta = ch.sample_ext()
     return [gamma] + delta_powers(delta, MAX_PAYLOAD)
@@ -358,8 +434,10 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
                   spill_bytes: float = SPILL_BYTES,
                   chunked_deep_bytes: float = CHUNKED_DEEP_BYTES,
                   devices: list | None = None, mesh=None,
-                  ntt_axis: str = "ntt") -> MachineProof:
-    """Prove `chips` as one machine STARK bound to `binding`.
+                  ntt_axis: str = "ntt",
+                  vk_roots: dict | None = None) -> MachineProof:
+    """Prove `chips` as one machine STARK bound to `binding`, with
+    Poseidon2 commitments.
 
     device: where the tensor work runs — the CUDA card by default (raises
     without one), "cpu" for the plain torch versions.  timings: if given,
@@ -376,7 +454,25 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
     mesh: a parallel.mesh.Mesh; when its `ntt_axis` has more than one
     device, the largest chips' trace LDEs run sharded over that axis.
     Either turns host spill off.  The proof bytes are the single-device
-    proof's for any device list and mesh."""
+    proof's for any device list and mesh.
+
+    vk_roots: if given, receives each preprocessed chip's root by name,
+    the value `preprocessed_root` gives for it, from the tree this prove
+    commits anyway."""
+    return _prove_machine(POSEIDON2, chips, binding, config, device,
+                          timings, spill_bytes, chunked_deep_bytes, devices,
+                          mesh, ntt_axis, vk_roots)
+
+
+def _prove_machine(commitment: Commitment, chips: list[ChipInstance],
+                   binding: bytes, config: StarkConfig = DEFAULT_CONFIG,
+                   device=None, timings: dict | None = None,
+                   spill_bytes: float = SPILL_BYTES,
+                   chunked_deep_bytes: float = CHUNKED_DEEP_BYTES,
+                   devices: list | None = None, mesh=None,
+                   ntt_axis: str = "ntt", vk_roots: dict | None = None):
+    """The machine STARK's stages under `commitment`; the other arguments
+    are `prove_machine`'s."""
     if devices is not None and device is not None:
         raise ValueError("pass device= or devices=, not both")
     if devices is not None and not devices:
@@ -455,15 +551,17 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
                 pre_m = _mont(inst.preprocessed, d["dev"])
                 d["pre_m"] = pre_m
                 d["pre_lde"] = coset_lde(pre_m, config.log_blowup, d["s"])
-                d["pre_tree"] = MerkleTree(d["pre_lde"], defer=defer)
+                d["pre_tree"] = commitment.commit(d["pre_lde"], defer)
         for inst, log_n in metas:
             d = per[inst.air.name]
             if "pre_tree" in d:
-                d["pre_root"] = [int(x) for x in d["pre_tree"].root]
+                d["pre_root"] = commitment.root(d["pre_tree"])
+                if vk_roots is not None:
+                    vk_roots[inst.air.name] = d["pre_root"]
 
-        ch = Challenger()
+        ch = commitment.challenger()
         _observe_header(
-            ch, binding,
+            commitment, ch, binding,
             [(inst.air.name, log_n, [int(v) % P for v in inst.publics],
               per[inst.air.name].get("pre_root"))
              for inst, log_n in metas])
@@ -478,11 +576,11 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
             else:
                 lde = coset_lde(trace_m, config.log_blowup, d["s"])
             d.update(trace_m=trace_m, lde=lde,
-                     trace_tree=MerkleTree(lde, defer=defer))
+                     trace_tree=commitment.commit(lde, defer))
         for inst, log_n in metas:
             d = per[inst.air.name]
-            d["trace_root"] = [int(x) for x in d["trace_tree"].root]
-            ch.observe_many(d["trace_root"])
+            d["trace_root"] = commitment.root(d["trace_tree"])
+            commitment.observe_root(ch, d["trace_root"])
             _spill(d, ("lde", "pre_lde"), spill_bytes, d["dev"])
         stages.next("perm_commit")
 
@@ -505,7 +603,7 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
                     "host" if type(air).perm_trace_m is Air.perm_trace_m
                     else "device"] += 1
                 perm_lde = coset_lde(perm_m, config.log_blowup, d["s"])
-                perm_tree = MerkleTree(perm_lde, defer=defer)
+                perm_tree = commitment.commit(perm_lde, defer)
             else:
                 perm_m = torch.zeros((n, 0), dtype=bb.DTYPE, device=d["dev"])
                 perm_lde = torch.zeros((n << config.log_blowup, 0),
@@ -516,13 +614,13 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
         for inst, log_n in metas:
             d = per[inst.air.name]
             if inst.air.perm_width:
-                d["perm_root"] = [int(x) for x in d["perm_tree"].root]
+                d["perm_root"] = commitment.root(d["perm_tree"])
                 # the accumulator is the LAST extension element of the perm
                 # trace; its final row is the chip's cumulative bus sum
                 if inst.air.has_bus:
                     d["bus_sum"] = [int(v) for v in bb.np_from_mont(
                         bb.to_numpy(d["perm_m"][-1, -4:]))]
-                ch.observe_many(d["perm_root"])
+                commitment.observe_root(ch, d["perm_root"])
                 ch.observe_many(d["bus_sum"])
             _spill(d, ("lde", "pre_lde", "perm_lde"), spill_bytes, d["dev"])
         stages.next("quotient")
@@ -571,11 +669,11 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
                 [coeffs_to_coset_evals(c, config.log_blowup, s_i)
                  for c in chunks], dim=1)
             d.update(q_cols=q_cols, q_chunks=chunks,
-                     q_tree=MerkleTree(q_cols, defer=defer))
+                     q_tree=commitment.commit(q_cols, defer))
         for inst, log_n in metas:
             d = per[inst.air.name]
-            d["q_root"] = [int(x) for x in d["q_tree"].root]
-            ch.observe_many(d["q_root"])
+            d["q_root"] = commitment.root(d["q_tree"])
+            commitment.observe_root(ch, d["q_root"])
             _spill(d, ("lde", "pre_lde", "perm_lde", "q_cols"), spill_bytes,
                    d["dev"])
         stages.next("ood_openings")
@@ -676,11 +774,12 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
 
         # 6. mixed-height FRI (host-driven fold loop)
         fri_roots, fri_trees, fri_layers, fri_final = _fri_commit(
-            ch, deep_by_log, config, log_N_max)
+            ch, deep_by_log, config, log_N_max, commitment)
         stages.next("queries")
 
         # 7. grinding + queries
-        pow_witness, q_indices = _grind_and_sample(ch, config, log_N_max, dev)
+        pow_witness, q_indices = _grind_and_sample(ch, config, log_N_max, dev,
+                                                   commitment)
 
         # gather queried rows per chip (index = q mod N_i), on the device that
         # holds each matrix (the host for a spilled one)
@@ -702,12 +801,13 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
                 "pre": _rows(d["pre_lde"]) if "pre_lde" in d else None,
             }
 
-        fri_steps = _fri_steps(fri_layers, fri_trees, q_indices, log_N_max)
+        fri_steps = _fri_steps(fri_layers, fri_trees, q_indices, log_N_max,
+                               commitment)
 
         def _opened(rows, tree, qi_pos, j):
             if rows is None:
                 return [], []
-            return [int(x) for x in rows[qi_pos]], _open_path(tree, j)
+            return [int(x) for x in rows[qi_pos]], commitment.open(tree, j)
 
         queries = []
         for qi_pos, q in enumerate(q_indices):
@@ -720,19 +820,19 @@ def prove_machine(chips: list[ChipInstance], binding: bytes,
                                               qi_pos, j)
                 pre_row, pre_path = _opened(rc["pre"], d.get("pre_tree"),
                                             qi_pos, j)
-                openings.append(ChipOpening(
+                openings.append(commitment.opening(
                     trace_row=[int(x) for x in rc["trace"][qi_pos]],
-                    trace_path=_open_path(d["trace_tree"], j),
+                    trace_path=commitment.open(d["trace_tree"], j),
                     quotient_row=[int(x) for x in rc["quot"][qi_pos]],
-                    quotient_path=_open_path(d["q_tree"], j),
+                    quotient_path=commitment.open(d["q_tree"], j),
                     perm_row=perm_row, perm_path=perm_path,
                     pre_row=pre_row, pre_path=pre_path,
                 ))
-            queries.append(MachineQuery(index=q, openings=openings,
-                                        fri_steps=fri_steps[qi_pos]))
+            queries.append(commitment.query(index=q, openings=openings,
+                                            fri_steps=fri_steps[qi_pos]))
 
-    return MachineProof(
-        chips=[ChipProof(
+    return commitment.proof(
+        chips=[commitment.chip_proof(
             name=inst.air.name, log_n=log_n,
             publics=[int(v) % P for v in inst.publics],
             bus_sum=per[inst.air.name]["bus_sum"],
@@ -755,10 +855,17 @@ def preprocessed_root(air: Air, preprocessed: np.ndarray, log_n_max: int,
     machine coset (set by its height relative to the machine's largest)
     and Merkle root.  Deterministic — computed once at setup and
     distributed with the verifying key.  device: as `prove_machine`'s."""
+    return _preprocessed_root(POSEIDON2, preprocessed, log_n_max, log_n,
+                              config, device)
+
+
+def _preprocessed_root(commitment: Commitment, preprocessed: np.ndarray,
+                       log_n_max: int, log_n: int, config: StarkConfig,
+                       device):
     dev = _resolve_device(device)
     s_i = pow(config.shift, 1 << (log_n_max - log_n), P)
     pre_lde = coset_lde(_mont(preprocessed, dev), config.log_blowup, s_i)
-    return [int(x) for x in MerkleTree(pre_lde).root]
+    return commitment.root(commitment.commit(pre_lde, False))
 
 
 # ---------------------------------------------------------------------------
@@ -769,6 +876,13 @@ def preprocessed_root(air: Air, preprocessed: np.ndarray, log_n_max: int,
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise VerificationError(what)
+
+
+def _opens(commitment: Commitment, row: list[int], j: int, path,
+           root) -> bool:
+    """Whether `path` opens the plain `row` at leaf j under `root`."""
+    return commitment.verify_path(
+        commitment.leaf_digest([v % P for v in row]), j, path, root)
 
 
 def verify_machine(airs: list[Air], proof: MachineProof, binding: bytes,
@@ -792,6 +906,16 @@ def verify_machine(airs: list[Air], proof: MachineProof, binding: bytes,
     prover-supplied ones.
     Raises VerificationError on failure; returns True on success.
     """
+    return _verify_machine(POSEIDON2, airs, proof, binding, public_messages,
+                           config, preprocessed_roots)
+
+
+def _verify_machine(commitment: Commitment, airs: list[Air], proof,
+                    binding: bytes, public_messages: list[tuple] | None,
+                    config: StarkConfig, preprocessed_roots: dict | None
+                    ) -> bool:
+    """The machine verifier under `commitment`; the other arguments are
+    `verify_machine`'s."""
     public_messages = public_messages or []
     preprocessed_roots = preprocessed_roots or {}
     air_by_name = {a.name: a for a in airs}
@@ -846,21 +970,21 @@ def verify_machine(airs: list[Air], proof: MachineProof, binding: bytes,
         geo.append((cp, air, n, log_N, s_i))
 
     # --- transcript replay -------------------------------------------------
-    ch = Challenger()
-    _observe_header(ch, binding,
+    ch = commitment.challenger()
+    _observe_header(commitment, ch, binding,
                     [(cp.name, cp.log_n, cp.publics,
                       preprocessed_roots.get(cp.name))
                      for cp in proof.chips])
     for cp in proof.chips:
-        ch.observe_many(cp.trace_root)
+        commitment.observe_root(ch, cp.trace_root)
     challenges = _sample_challenges(ch)
     for cp, air, *_ in geo:
         if air.perm_width:
-            ch.observe_many(cp.perm_root)
+            commitment.observe_root(ch, cp.perm_root)
             ch.observe_many(cp.bus_sum)
     alpha = ch.sample_ext()
     for cp in proof.chips:
-        ch.observe_many(cp.quotient_root)
+        commitment.observe_root(ch, cp.quotient_root)
     zeta = ch.sample_ext()
     for cp in proof.chips:
         for v in (cp.tl + cp.tn + cp.pl + cp.pn + cp.qe + cp.el + cp.en):
@@ -875,7 +999,7 @@ def verify_machine(airs: list[Air], proof: MachineProof, binding: bytes,
     _check(len(proof.fri_roots) == n_layers, "bad FRI layer count")
     _check(len(proof.fri_final) == size, "bad FRI final size")
     for root in proof.fri_roots:
-        ch.observe_many(root)
+        commitment.observe_root(ch, root)
         fold_betas.append(ch.sample_ext())
     for v in proof.fri_final:
         ch.observe_ext(v)
@@ -953,36 +1077,30 @@ def verify_machine(airs: list[Air], proof: MachineProof, binding: bytes,
             N_i = 1 << log_N
             j = q % N_i
             pw = air.perm_width
+            ew = getattr(air, "preprocessed_width", 0)
             _check(len(op.trace_row) == air.width,
                    f"{cp.name}: bad trace row")
             _check(len(op.quotient_row) == 4 * config.blowup,
                    f"{cp.name}: bad quotient row")
-            _check(verify_path(
-                hash_row_ints([v % P for v in op.trace_row]), j,
-                op.trace_path, cp.trace_root),
-                f"{cp.name}: trace Merkle path failed")
-            _check(verify_path(
-                hash_row_ints([v % P for v in op.quotient_row]), j,
-                op.quotient_path, cp.quotient_root),
-                f"{cp.name}: quotient Merkle path failed")
+            _check(len(op.perm_row) == pw, f"{cp.name}: bad perm row")
+            # a chip without fixed columns opens neither a row nor a path
+            _check(len(op.pre_row) == ew and (ew or not op.pre_path),
+                   f"{cp.name}: bad preprocessed row")
+            _check(_opens(commitment, op.trace_row, j, op.trace_path,
+                          cp.trace_root),
+                   f"{cp.name}: trace Merkle path failed")
+            _check(_opens(commitment, op.quotient_row, j, op.quotient_path,
+                          cp.quotient_root),
+                   f"{cp.name}: quotient Merkle path failed")
             if pw:
-                _check(len(op.perm_row) == pw, f"{cp.name}: bad perm row")
-                _check(verify_path(
-                    hash_row_ints([v % P for v in op.perm_row]), j,
-                    op.perm_path, cp.perm_root),
-                    f"{cp.name}: perm Merkle path failed")
-            ew = getattr(air, "preprocessed_width", 0)
+                _check(_opens(commitment, op.perm_row, j, op.perm_path,
+                              cp.perm_root),
+                       f"{cp.name}: perm Merkle path failed")
             if ew:
-                _check(len(op.pre_row) == ew,
-                       f"{cp.name}: bad preprocessed row")
-                _check(verify_path(
-                    hash_row_ints([v % P for v in op.pre_row]), j,
-                    op.pre_path, preprocessed_roots[cp.name]),
-                    f"{cp.name}: preprocessed Merkle path failed "
-                    "(vk root)")
-            else:
-                _check(not op.pre_row and not op.pre_path,
-                       f"{cp.name}: bad preprocessed row")
+                _check(_opens(commitment, op.pre_row, j, op.pre_path,
+                              preprocessed_roots[cp.name]),
+                       f"{cp.name}: preprocessed Merkle path failed "
+                       "(vk root)")
             x = Fp4(s_i * pow(two_adic_root(log_N), j, P) % P)
             g_zeta = zeta * two_adic_root(cp.log_n)
             off, w_z, w_gz, ev_z, ev_gz = deep_prep[cp.name]
@@ -1006,20 +1124,19 @@ def verify_machine(airs: list[Air], proof: MachineProof, binding: bytes,
         v = Fp4(0)
         qq = q
         cur_shift = s
-        for ell, step in enumerate(mq.fri_steps):
+        for ell, (pair, path) in enumerate(mq.fri_steps):
             log_l = log_N_max - ell
             if log_l in scaled:
                 v = v + scaled[log_l]
             half = (1 << log_l) // 2
             j = qq % half
-            row = [c for val in step.pair for c in val.c]
-            _check(verify_path(hash_row_ints(row), j, step.path,
-                               proof.fri_roots[ell]),
+            row = [c for val in pair for c in val.c]
+            _check(_opens(commitment, row, j, path, proof.fri_roots[ell]),
                    f"FRI layer {ell} Merkle path failed")
-            mine = step.pair[0] if qq < half else step.pair[1]
+            mine = pair[0] if qq < half else pair[1]
             _check(mine == v, f"FRI layer {ell} value mismatch")
             x_j = Fp4(cur_shift * pow(two_adic_root(log_l), j, P) % P)
-            a, b_ = step.pair
+            a, b_ = pair
             v = (a + b_) / 2 + fold_betas[ell] * (a - b_) / (2 * x_j)
             cur_shift = cur_shift * cur_shift % P
             qq = j

@@ -8,6 +8,7 @@ risc0-zkp seal / Plonky3 uni-stark proof, SURVEY.md §2.2)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 from ..core import cbor
 from ..ops.field_ref import Fp4
@@ -17,10 +18,9 @@ __all__ = ["FriStep", "QueryProof", "StarkProof"]
 Digest = list[int]  # 8 base elements
 
 
-@dataclass
-class FriStep:
+class FriStep(NamedTuple):
     pair: tuple[Fp4, Fp4]    # (f(x), f(−x)) at the queried leaf
-    path: list[Digest]
+    path: list               # the layer tree's sibling path
 
 
 @dataclass

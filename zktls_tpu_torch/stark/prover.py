@@ -172,26 +172,27 @@ def _fp4_rows(arr: np.ndarray) -> list[Fp4]:
     return [Fp4(*[int(x) for x in row]) for row in arr]
 
 
-def _fri_commit(ch: Challenger, deep_by_log: dict, config: StarkConfig,
-                log_N: int):
+def _fri_commit(ch, deep_by_log: dict, config: StarkConfig, log_N: int,
+                commitment):
     """The FRI commit phase, driven from the host: commit each layer (pair
-    leaves), absorb its root, sample β, fold; the DEEP polynomial of a
-    shorter height (`deep_by_log[log]`, a mixed-height machine's) joins
-    the chain where the fold reaches it.  Absorbs the final layer.
+    leaves) under `commitment` (a machine.Commitment), absorb its root,
+    sample β, fold; the DEEP polynomial of a shorter height
+    (`deep_by_log[log]`, a mixed-height machine's) joins the chain where
+    the fold reaches it.  Absorbs the final layer.
     Returns (roots, trees, layers, final values as Fp4)."""
-    roots: list[list[int]] = []
-    trees: list[MerkleTree] = []
+    roots = []
+    trees = []
     layers: list[torch.Tensor] = []
     cur = deep_by_log[log_N]
     cur_shift = config.shift
     cur_log = log_N
     while (1 << cur_log) > config.fri_final_size:
-        tree = MerkleTree(_pair_rows(cur))
-        root = [int(x) for x in tree.root]
+        tree = commitment.commit(_pair_rows(cur), False)
+        root = commitment.root(tree)
         trees.append(tree)
         roots.append(root)
         layers.append(cur)
-        ch.observe_many(root)
+        commitment.observe_root(ch, root)
         beta_l = ch.sample_ext()
         cur = _fold_layer(cur, beta_l, _inv_2x(cur_log, cur_shift))
         cur_shift = cur_shift * cur_shift % P
@@ -204,13 +205,14 @@ def _fri_commit(ch: Challenger, deep_by_log: dict, config: StarkConfig,
     return roots, trees, layers, final
 
 
-def _grind_and_sample(ch: Challenger, config: StarkConfig, log_N: int,
-                      device) -> tuple[int, list[int]]:
-    """Grind the proof-of-work witness, then draw the query indices (all
-    of them before any row is gathered).  Returns (witness, indices)."""
+def _grind_and_sample(ch, config: StarkConfig, log_N: int, device,
+                      commitment) -> tuple[int, list[int]]:
+    """Grind the proof-of-work witness (`commitment.grind`), then draw the
+    query indices (all of them before any row is gathered).  Returns
+    (witness, indices)."""
     pow_witness = 0
     if config.pow_bits:
-        pow_witness = _grind_device(ch, config.pow_bits, device)
+        pow_witness = commitment.grind(ch, config.pow_bits, device)
     ch.check_witness(config.pow_bits, pow_witness)
     return pow_witness, [ch.sample_bits(log_N)
                          for _ in range(config.num_queries)]
@@ -220,10 +222,11 @@ def _open_path(tree: MerkleTree, j: int) -> list[list[int]]:
     return [[int(x) for x in d] for d in tree.open(j)]
 
 
-def _fri_steps(layers: list[torch.Tensor], trees: list[MerkleTree],
-               q_indices: list[int], log_N: int) -> list[list[FriStep]]:
+def _fri_steps(layers: list[torch.Tensor], trees: list, q_indices: list[int],
+               log_N: int, commitment) -> list[list[FriStep]]:
     """Each query's FRI openings: one indexed read per layer for all
-    queries, then the pair and its path per query and layer."""
+    queries, then the pair and its path (`commitment.open`) per query and
+    layer."""
     pairs: list[np.ndarray] = []
     qq_per_layer: list[list[int]] = []
     cur_qs = list(q_indices)
@@ -238,7 +241,7 @@ def _fri_steps(layers: list[torch.Tensor], trees: list[MerkleTree],
     nq = len(q_indices)
     return [[FriStep(pair=(Fp4(*[int(x) for x in pairs[ell][pos]]),
                            Fp4(*[int(x) for x in pairs[ell][nq + pos]])),
-                     path=_open_path(tree, qq_per_layer[ell][pos]))
+                     path=commitment.open(tree, qq_per_layer[ell][pos]))
              for ell, tree in enumerate(trees)]
             for pos in range(nq)]
 
@@ -254,7 +257,7 @@ def prove(air: Air, trace: np.ndarray, public_values: list[int] | None = None,
     stage (lde_commit, quotient, ood_openings, deep, fri, queries; the
     device is synchronised at each stage boundary)."""
     from .lowering import eval_quotient_vm, lower_air
-    from .machine import _resolve_device
+    from .machine import POSEIDON2, _resolve_device
 
     dev = _resolve_device(device)
     with Stages(timings, "lde_commit", [dev]) as stages:
@@ -392,11 +395,12 @@ def prove(air: Air, trace: np.ndarray, public_values: list[int] | None = None,
         # 6. FRI -----------------------------------------------------------
         log_N = log_n + config.log_blowup
         fri_roots, fri_trees, fri_layers, fri_final = _fri_commit(
-            ch, {log_N: deep}, config, log_N)
+            ch, {log_N: deep}, config, log_N, POSEIDON2)
         stages.next("queries")
 
         # 7. grinding + queries --------------------------------------------
-        pow_witness, q_indices = _grind_and_sample(ch, config, log_N, dev)
+        pow_witness, q_indices = _grind_and_sample(ch, config, log_N, dev,
+                                                   POSEIDON2)
         qi = torch.tensor(q_indices, dtype=torch.int64, device=dev)
 
         def _rows(mat):
@@ -404,7 +408,8 @@ def prove(air: Air, trace: np.ndarray, public_values: list[int] | None = None,
 
         trace_rows, quot_rows = _rows(lde), _rows(q_cols)
         perm_rows = _rows(perm_lde) if pw else None
-        fri_steps = _fri_steps(fri_layers, fri_trees, q_indices, log_N)
+        fri_steps = _fri_steps(fri_layers, fri_trees, q_indices, log_N,
+                               POSEIDON2)
         queries = []
         for qi_pos, q in enumerate(q_indices):
             queries.append(QueryProof(

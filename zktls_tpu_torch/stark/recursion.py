@@ -47,27 +47,15 @@ from dataclasses import dataclass
 from ..ops.field_ref import Fp4, P, two_adic_root
 from ..utils.spans import Stages
 from .air import Air, AirBuilder, scalar_vec_hooks
-from .bus import (
-    BUS_SP16_CHAIN,
-    BUS_VM_PUB,
-    MAX_PAYLOAD,
-    bus_fingerprint,
-)
+from .bus import BUS_SP16_CHAIN, BUS_VM_PUB, MAX_PAYLOAD
 from .challenger import Challenger
 from .chips.sponge import Sponge16Air, Sponge24Air, SpongeRow, sponge_trace
-from .chips.vm import (
-    Instr,
-    OP_IDX,
-    VmAir,
-    instr_payload,
-    vm_preprocessed,
-    vm_trace,
-)
+from .chips.vm import Instr, VmAir, vm_preprocessed, vm_trace
 from .config import DEFAULT_CONFIG, StarkConfig
 from .ext_val import ExtVal
 from .machine import (
     CHUNKED_DEEP_BYTES,
-    MACHINE_DOMAIN_TAG,
+    POSEIDON2,
     SPILL_BYTES,
     ChipInstance,
     MachineProof,
@@ -77,7 +65,7 @@ from .machine import (
     prove_machine,
     verify_machine,
 )
-from .verifier import VerificationError
+from .verifier import _EXT_BASIS, VerificationError
 
 __all__ = ["MachineShape", "RecursionVK", "recursion_prove",
            "recursion_verify", "recursion_vk", "trusted_vk",
@@ -85,7 +73,6 @@ __all__ = ["MachineShape", "RecursionVK", "recursion_prove",
            "recursion_prove_bn", "recursion_verify_bn"]
 
 _X = Fp4(0, 1, 0, 0)
-_EXT_BASIS = [Fp4(1), Fp4(0, 1), Fp4(0, 0, 1), Fp4(0, 0, 0, 1)]
 LEAF_RATE = 16
 
 
@@ -707,7 +694,7 @@ def build_program(airs: list[Air], shape: MachineShape, binding: bytes,
 
     # --- precompute the post-header challenger state (all constants) ---
     hch = Challenger()
-    _observe_header(hch, binding,
+    _observe_header(POSEIDON2, hch, binding,
                     [(cp.name, cp.log_n, cp.publics,
                       preprocessed_roots.get(cp.name))
                      for cp in proof.chips])
@@ -1154,7 +1141,7 @@ def _session_messages(shape: MachineShape, binding: bytes,
     values)."""
     pre = preprocessed_roots or {}
     hch = Challenger()
-    _observe_header(hch, binding,
+    _observe_header(POSEIDON2, hch, binding,
                     [(n, l, list(p), pre.get(n))
                      for n, l, p in shape.chips])
     pubs = [v % P for v in hch.input_buf]
@@ -1281,11 +1268,14 @@ def recursion_prove(airs: list[Air], proof: MachineProof, binding: bytes,
     VM chip's vk-committed preprocessed columns.  Returns
     (vk, outer_proof).
 
+    The vk's program root is the VmAir preprocessed root the outer prove
+    commits (the reference commits the program matrix a second time for
+    it, through preprocessed_root, at the same coset: the same root).
+
     device, spill_bytes, chunked_deep_bytes: passed to `prove_machine`
-    (the CUDA card by default).  timings: if given, receives the outer
-    `prove_machine`'s stages and the host seconds of `build_program`,
-    `outer_chips` (VM and sponge traces) and `vk_from_prog` (the program
-    matrix committed again for the vk, as the reference does)."""
+    (the CUDA card by default).  timings: if given, receives the host
+    seconds of `build_program` and `outer_chips` (VM and sponge traces),
+    then the outer `prove_machine`'s stages."""
     shape = MachineShape.of(proof)
     with Stages(timings, "build_program") as stages:
         prog = build_program(airs, shape, binding,
@@ -1295,14 +1285,14 @@ def recursion_prove(airs: list[Air], proof: MachineProof, binding: bytes,
         stages.next("outer_chips")
         chips = _outer_chips(prog)
     outer_binding = binding + shape.to_bytes()
+    roots: dict = {}
     outer = prove_machine(
         chips, binding=outer_binding,
         config=outer_config or inner_config, device=device,
         timings=timings, spill_bytes=spill_bytes,
-        chunked_deep_bytes=chunked_deep_bytes)
-    with Stages(timings, "vk_from_prog"):
-        vk = _vk_from_prog(prog, shape, outer_config or inner_config,
-                           device=device)
+        chunked_deep_bytes=chunked_deep_bytes, vk_roots=roots)
+    vk = RecursionVK(shape=shape, program_root=tuple(roots["VmAir"]),
+                     n_instrs=len(prog.instrs), n_pubs=len(prog.pub_values))
     return vk, outer
 
 
